@@ -9,15 +9,23 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 0. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
    no CUDA device is a failure;
-1. build the CUDA solve kernels from ``implicit_tpu_torch/ops/csrc`` (nvcc);
-2. each kernel against its plain PyTorch version on the card, in float32
-   and bfloat16, at the fit's own class shapes, with times; the same bar
-   must reject a plain version one CG step short;
-3. the main path: ``AlternatingLeastSquares.fit`` at the last.fm-360k shape
-   (360k users x 160k items, 17.5M nnz, factors=128) in float32 and
-   bfloat16, then batched ``recommend`` and ``similar_items``; the kernels'
-   launch counters must show every routed chunk;
-4. quality: p@10 > 0.2 on the committed stdlib corpus.
+1. build the CUDA kernels from ``implicit_tpu_torch/ops/csrc`` (nvcc, one
+   process per library, all at once);
+2. each kernel against its plain PyTorch version on the card, in float32,
+   bfloat16 and int8 (per-row scales), at the fit's own class shapes, with
+   times; the same bar must reject a deliberately wrong plain version (one
+   CG step short; for weighted_matvec each row's last entry dropped);
+3. the main paths, each with the launch counters set to 0 just before it
+   and read just after, which must show every routed chunk:
+   ``AlternatingLeastSquares.fit`` at the last.fm-360k shape (360k users x
+   160k items, 17.5M nnz) at factors=128 in float32, bfloat16 and bfloat16
+   with ``gather_quant=True``; at factors=256 with ``gather_quant="auto"``
+   (int8 on the item side only) and ``False``; one user-side half-iteration
+   of the composed CG on ``weighted_matvec`` (``_cg_class(use_pallas=True)``)
+   with the float32, bfloat16 and int8 tables against the same CG on the
+   plain sparse term; then batched ``recommend`` and ``similar_items``;
+4. quality: p@10 > 0.2 on the committed stdlib corpus, unquantized and with
+   ``gather_quant=True``.
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's name and power limit; the last line is
@@ -38,9 +46,11 @@ CORPUS = os.path.join(ROOT, "implicit_tpu", "datasets", "_data", "stdlib_corpus.
 
 # kernel vs plain: same inputs, same f32 accumulation, different summation
 # order. rtol = atol: 1e-4 in float32; in bfloat16 2e-3, the bar of the JAX
-# package's own kernel-vs-composed tests (tests/test_torch_cuda.py holds the
-# same two)
-TOL = {"f32": 1e-4, "bf16": 2e-3}
+# package's own kernel-vs-composed tests; int8 1e-4, since kernel and plain
+# version dequantize to the same bfloat16 values and both accumulate in
+# float32 (tests/test_torch_cuda.py holds the same three)
+TOL = {"f32": 1e-4, "bf16": 2e-3, "i8": 1e-4}
+VARIANTS = ("f32", "bf16", "i8")
 
 KERNELS = {
     "cg_full": dict(
@@ -51,6 +61,10 @@ KERNELS = {
         source="implicit_tpu_torch/ops/csrc/gramian_cg.cu",
         replaces="implicit_tpu/ops/pallas_ops.py:292",
         shape=(256, 8192, 128)),  # a long-row (head item) class
+    "weighted_matvec": dict(
+        source="implicit_tpu_torch/ops/csrc/weighted_matvec.cu",
+        replaces="implicit_tpu/ops/pallas_ops.py:46",
+        shape=(1024, 600, 128)),  # L not a multiple of 32
 }
 
 
@@ -103,134 +117,293 @@ def kernel_case(C, L, F, dtype, seed, device):
     return t(Y).to(dtype), t(idx), t(dat), t(x0), t(yty)
 
 
+def variant_case(name, variant, device):
+    """``kernel_case`` for one kernel's shape, with the table as the variant
+    has it: float32, bfloat16, or int8 + scales quantized from it."""
+    import torch
+
+    from implicit_tpu_torch.ops.als import _quantize_table
+
+    C, L, F = KERNELS[name]["shape"]
+    Y, idx, dat, x0, yty = kernel_case(C, L, F, torch.float32, seed=C + L, device=device)
+    scales = None
+    if variant == "bf16":
+        Y = Y.to(torch.bfloat16)
+    elif variant == "i8":
+        Y, scales = _quantize_table(Y, "bfloat16")
+    return Y, scales, idx, dat, x0, yty
+
+
+def drop_last_entry(w, bv):
+    """(w, bv) with each row's last nonzero entry set to 0: a wrong reference."""
+    import torch
+
+    live = (w != 0) | (bv != 0)
+    L = w.shape[1]
+    last = L - 1 - torch.flip(live, (1,)).int().argmax(1)
+    rows = torch.nonzero(live.any(1))[:, 0]
+    w, bv = w.clone(), bv.clone()
+    w[rows, last[rows]] = 0.0
+    bv[rows, last[rows]] = 0.0
+    return w, bv
+
+
+def check_against(tag, got, want, wrong, tol, what_wrong):
+    """max |got - want|, with the bar rtol = atol = tol; the bar must hold
+    against ``want`` and reject ``wrong``."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{tag}: non-finite kernel output")
+    err = float((got - want).abs().max())
+    wrong_err = float((got - wrong).abs().max())
+    bar = tol + tol * float(want.abs().max())
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        raise AssertionError(f"{tag}: kernel disagrees with plain version ({err:.3e})")
+    if torch.allclose(got, wrong, rtol=tol, atol=tol):
+        raise AssertionError(f"{tag}: the bar does not tell the plain version from {what_wrong}")
+    return dict(max_abs_err=err, bar=bar, wrong_ref_err=wrong_err)
+
+
 def phase_kernels(device):
     import torch
 
     from implicit_tpu_torch.ops import cg_kernels
+    from implicit_tpu_torch.ops.als import _weights
 
-    wrappers = {"cg_full": (cg_kernels.cg_solve_full, cg_kernels.cg_solve_full_plain),
-                "gramian_cg": (cg_kernels.gramian_cg_solve, cg_kernels.gramian_cg_solve_plain)}
-    results = {}
-    for name, spec in KERNELS.items():
-        kernel, plain = wrappers[name]
-        res = results[name] = {"max_abs_err": 0.0}
-        for dtype in (torch.float32, torch.bfloat16):
-            C, L, F = spec["shape"]
-            args = kernel_case(C, L, F, dtype, seed=C + L, device=device)
-            tag = "f32" if dtype == torch.float32 else "bf16"
-            tol = TOL[tag]
-            got = kernel(*args, cg_steps=3)
-            want = plain(*args, cg_steps=3)
-            # a deliberately wrong reference (one CG step short): the bar
-            # must reject it, or it could not catch a real slip either
-            wrong = plain(*args, cg_steps=2)
-            torch.cuda.synchronize()
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"{name} {tag}: non-finite kernel output")
-            err = float((got - want).abs().max())
-            wrong_err = float((got - wrong).abs().max())
-            bar = tol + tol * float(want.abs().max())
-            if not torch.equal(got[1], args[3][1]):
-                raise AssertionError(f"{name} {tag}: all-padding row moved")
-            reps = 20 if name == "cg_full" else 5
-            ms = cuda_ms(lambda: kernel(*args, cg_steps=3), reps)
-            plain_ms = cuda_ms(lambda: plain(*args, cg_steps=3), reps)
-            say(2, f"{name} {tag} C={C} L={L} F={F}: max_abs_err={err:.3e} "
-                   f"(bar rtol=atol={tol}: {bar:.3e}; against cg_steps=2: "
-                   f"{wrong_err:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            if not torch.allclose(got, want, rtol=tol, atol=tol):
-                raise AssertionError(f"{name} {tag}: kernel disagrees with plain version")
-            if torch.allclose(got, wrong, rtol=tol, atol=tol):
-                raise AssertionError(f"{name} {tag}: the bar does not tell cg_steps 3 from 2")
-            res["max_abs_err"] = max(res["max_abs_err"], err)
-            res[f"ms_{tag}"] = ms
-            res[f"plain_ms_{tag}"] = plain_ms
-            del args, got, want, wrong
+    solves = {"cg_full": (cg_kernels.cg_solve_full, cg_kernels.cg_solve_full_plain),
+              "gramian_cg": (cg_kernels.gramian_cg_solve, cg_kernels.gramian_cg_solve_plain)}
+    results = {name: {} for name in KERNELS}
+    for name in KERNELS:
+        C, L, F = KERNELS[name]["shape"]
+        for variant in VARIANTS:
+            Y, scales, idx, dat, x0, yty = variant_case(name, variant, device)
+            tol = TOL[variant]
+            tag = f"{name} {variant} C={C} L={L} F={F}"
+            if name in solves:
+                kernel, plain = solves[name]
+                run = lambda: kernel(Y, idx, dat, x0, yty, cg_steps=3, scales=scales)  # noqa: E731
+                ref = lambda steps=3: plain(  # noqa: E731
+                    Y, idx, dat, x0, yty, cg_steps=steps, scales=scales)
+                got = run()
+                # a deliberately wrong reference (one CG step short): the
+                # bar must reject it, or it could not catch a real slip either
+                res = check_against(tag, got, ref(), ref(2), tol, "cg_steps=2")
+                if not torch.equal(got[1], x0[1]):
+                    raise AssertionError(f"{tag}: all-padding row moved")
+                reps = 20 if name == "cg_full" else 5
+            else:
+                w, bv = _weights(dat)
+                w_short, bv_short = drop_last_entry(w, bv)
+                v = x0 * 10
+                for alpha, beta in ((1.0, -1.0), (0.0, 1.0)):
+                    got = cg_kernels.weighted_matvec(Y, idx, w, bv, v, alpha, beta, scales)
+                    want = cg_kernels.weighted_matvec_plain(Y, idx, w, bv, v, alpha, beta, scales)
+                    wrong = cg_kernels.weighted_matvec_plain(
+                        Y, idx, w_short, bv_short, v, alpha, beta, scales)
+                    r = check_against(f"{tag} (alpha, beta)=({alpha:g}, {beta:g})", got, want,
+                                      wrong, tol, "each row's last entry dropped")
+                    res = r if alpha == 1.0 else {k: max(res[k], r[k]) for k in r}
+                # timed on the A p pass, cg_steps of the cg_steps + 1 per solve
+                run = lambda: cg_kernels.weighted_matvec(  # noqa: E731
+                    Y, idx, w, bv, v, 0.0, 1.0, scales)
+                ref = lambda: cg_kernels.weighted_matvec_plain(  # noqa: E731
+                    Y, idx, w, bv, v, 0.0, 1.0, scales)
+                reps = 20
+            res["ms"] = cuda_ms(run, reps)
+            res["plain_ms"] = cuda_ms(ref, reps)
+            say(2, f"{tag}: max_abs_err={res['max_abs_err']:.3e} (bar rtol=atol={tol}: "
+                   f"{res['bar']:.3e}; against the wrong reference: {res['wrong_ref_err']:.3e}) "
+                   f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms")
+            results[name][variant] = res
+            del Y, scales, idx, dat, x0, yty, got, run, ref
             torch.cuda.empty_cache()
     return results
 
 
-def expected_launches(csr, factors, compute_dtype, iterations, grid="pow2"):
-    """Chunks the fit routes to each kernel: both sides, every iteration."""
+def expected_launches(csr, factors, compute_dtype, iterations, gather_quant=(False, False),
+                      grid="pow2"):
+    """Chunks the fit routes to each kernel entry point: both sides, every
+    iteration; a side with gather_quant runs the int8 variants."""
+    from implicit_tpu_torch.ops import cg_kernels
     from implicit_tpu_torch.ops.als import _full_cg_max_l
     from implicit_tpu_torch.sparse import als_chunk_target, chunk_pieces, length_class_grid
 
     target = als_chunk_target(factors, compute_dtype)
     max_l = _full_cg_max_l(compute_dtype, factors)
-    out = {"cg_full": 0, "gramian_cg": 0}
-    for m in (csr, csr.T.tocsr()):
+    out = dict.fromkeys(cg_kernels.LAUNCHES, 0)
+    for m, quant in ((csr, gather_quant[0]), (csr.T.tocsr(), gather_quant[1])):
+        variant = "i8" if quant else ("bf16" if compute_dtype == "bfloat16" else "f32")
         nnz = np.diff(m.indptr)
         Ls, counts = np.unique(length_class_grid(nnz[nnz > 0], 8, grid), return_counts=True)
         for L, count in zip(Ls, counts):
             chunks = sum(p[2] for p in chunk_pieces(int(count), int(L), target, 65536))
-            out["cg_full" if L <= max_l else "gramian_cg"] += chunks * iterations
+            kernel = "cg_full" if L <= max_l else "gramian_cg"
+            out[f"{kernel}_{variant}"] += chunks * iterations
     return out
 
 
-def phase_main_path(device):
-    import torch
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
 
+
+def fit_path(tag, plays, device, factors, dtype, gather_quant, iterations=3):
+    """One fit at the full shape, its launches read against the chunks routed."""
     from implicit_tpu_torch.als import AlternatingLeastSquares
-    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
     from implicit_tpu_torch.ops import cg_kernels
 
-    t0 = time.perf_counter()
-    plays = generate_synthetic(360_000, 160_000, 17_500_000, seed=0)
-    say(3, f"last.fm-shaped data {plays.shape} nnz={plays.nnz} in "
-           f"{time.perf_counter() - t0:.1f} s")
-    iterations = 3
-    want = {name: 0 for name in cg_kernels.LAUNCHES}
-    per_dtype, models = {}, {}
+    model = AlternatingLeastSquares(factors=factors, iterations=iterations, random_state=0,
+                                    dtype=dtype, gather_quant=gather_quant, device=device)
+    sides = model._gather_quant_sides(*plays.shape)
+    want = expected_launches(plays, factors, model._compute_dtype, iterations, sides)
+    times = []
     cg_kernels.reset_launches()
-    for dtype, cdt in ((np.float32, "float32"), (np.float16, "bfloat16")):
-        for name, n in expected_launches(plays, 128, cdt, iterations).items():
-            want[name] += n
-        times = []
-        model = AlternatingLeastSquares(factors=128, iterations=iterations, random_state=0,
-                                        dtype=dtype, device=device)
-        t0 = time.perf_counter()
-        model.fit(plays, show_progress=False,
-                  callback=lambda it, elapsed, loss: times.append(elapsed))
-        wall = time.perf_counter() - t0
-        for f in (model.user_factors, model.item_factors):
-            if not np.isfinite(np.asarray(f, dtype=np.float32)).all():
-                raise AssertionError(f"{cdt} fit: non-finite factors")
-        per_dtype[cdt] = times
-        models[cdt] = model
-        say(3, f"fit {cdt}: s/iter {[round(t, 4) for t in times]} "
-               f"(fit wall incl. host packing {wall:.2f} s)")
+    t0 = time.perf_counter()
+    model.fit(plays, show_progress=False,
+              callback=lambda it, elapsed, loss: times.append(elapsed))
+    wall = time.perf_counter() - t0
+    launches = dict(cg_kernels.LAUNCHES)
+    for f in (model.user_factors, model.item_factors):
+        if not np.isfinite(np.asarray(f, dtype=np.float32)).all():
+            raise AssertionError(f"fit {tag}: non-finite factors")
+    say(3, f"fit {tag}: gather_quant={gather_quant!r} -> (user, item) sides {sides}; "
+           f"s/iter {[round(t, 4) for t in times]} (fit wall incl. host packing {wall:.2f} s)")
+    say(3, f"fit {tag}: launches {nonzero(launches)}, chunks routed {nonzero(want)}")
+    if launches != want:
+        raise AssertionError(f"fit {tag}: launches {launches} != chunks routed {want}")
+    return model, sides, times, launches
 
-    model = models["float32"]
-    users = np.arange(0, 360_000, 360_000 // 1024)[:1024]
+
+def composed_cg_path(plays, device):
+    """One user-side half-iteration of the composed CG with weighted_matvec as
+    its sparse term (``_cg_class(use_pallas=True)``) over every class, for
+    the float32 / bfloat16 / int8 tables; each held to the same CG on the
+    plain sparse term, with the same bfloat16 dequant for int8
+    (``cg_solve_full_plain`` with scales).
+
+    The factors are drawn from a seed, mixed in sign as ``kernel_case``'s:
+    from a fitted model's factors, 3-step float32 CG amplifies summation
+    order on a few ill-conditioned rows past any 1e-4 bar, kernel or not
+    (PERF.md, section 6)."""
+    import torch
+
+    from implicit_tpu_torch.ops import als as als_ops
+    from implicit_tpu_torch.ops import cg_kernels
+    from implicit_tpu_torch.sparse import BucketedCSR, als_chunk_target
+
+    F = 128
+    buckets = BucketedCSR(plays, target_entries=als_chunk_target(F, "float32"),
+                          max_chunk_rows=65536, grid="pow2").to_device(device)
+    chunks = [c for cls in buckets.classes for c in als_ops._class_chunks(cls)]
+    rng = np.random.default_rng(7)
+    n_users, n_items = plays.shape
+    Y = torch.as_tensor(rng.standard_normal((n_items, F), dtype=np.float32) * 0.1,
+                        device=device)
+    X0 = torch.as_tensor(rng.standard_normal((n_users, F), dtype=np.float32) * 0.01,
+                         device=device)
+    yty = als_ops.gramian(Y, 0.01)
+    all_launches = {}
+    for variant, table in (("f32", Y), ("bf16", Y.to(torch.bfloat16)),
+                           ("i8", als_ops._quantize_table(Y, "float32"))):
+        q, s = table if isinstance(table, tuple) else (table, None)
+        cg_kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = als_ops._cg_class(X0.clone(), table, yty, chunks, 3, use_pallas=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(cg_kernels.LAUNCHES)
+        want = als_ops._solve_class(X0.clone(), chunks, lambda x0, idx, dat: (
+            cg_kernels.cg_solve_full_plain(q, idx, dat, x0, yty, 3, scales=s)))
+        tol = TOL[variant]
+        err = float((got - want).abs().max())
+        routed = dict.fromkeys(launches, 0)
+        routed[f"weighted_matvec_{variant}"] = (3 + 1) * len(chunks)
+        say(3, f"composed CG on weighted_matvec, user side, {variant} table: {len(chunks)} "
+               f"chunks, {secs:.4f} s; max_abs_err against the plain sparse term {err:.3e} "
+               f"(rtol=atol={tol}, |x| <= {float(want.abs().max()):.3f}); "
+               f"launches {nonzero(launches)}")
+        if not torch.isfinite(got).all() or not torch.allclose(got, want, rtol=tol, atol=tol):
+            raise AssertionError(f"composed CG {variant}: disagrees with the plain sparse term")
+        if launches != routed:
+            raise AssertionError(f"composed CG {variant}: launches {launches} != {routed}")
+        all_launches[f"weighted_matvec_{variant}"] = launches[f"weighted_matvec_{variant}"]
+        del got, want
+        torch.cuda.empty_cache()
+    return all_launches
+
+
+def serve_checks(tag, model, plays):
+    """Batched recommend and similar_items on a fitted model: shapes, finite
+    scores, ids in range, no liked item returned, every item its own
+    nearest neighbour."""
+    users = np.arange(0, plays.shape[0], plays.shape[0] // 1024)[:1024]
     liked = plays[users]
     ids, scores = model.recommend(users, liked, N=10, filter_already_liked_items=True)
     if ids.shape != (1024, 10) or not np.isfinite(scores).all():
-        raise AssertionError(f"recommend: bad result shape {ids.shape} or scores")
+        raise AssertionError(f"recommend {tag}: bad result shape {ids.shape} or scores")
     if (ids < 0).any() or (ids >= plays.shape[1]).any():
-        raise AssertionError("recommend: id out of range")
+        raise AssertionError(f"recommend {tag}: id out of range")
     for row, u in enumerate(users):
         if np.isin(ids[row], liked[row].indices).any():
-            raise AssertionError(f"recommend: user {u} got an already-liked item")
+            raise AssertionError(f"recommend {tag}: user {u} got an already-liked item")
     sim_ids, sim_scores = model.similar_items(np.arange(1024), N=10)
     if sim_ids.shape != (1024, 10) or (sim_ids[:, 0] != np.arange(1024)).mean() > 0.01:
-        raise AssertionError("similar_items: items are not their own nearest neighbour")
-    launches = dict(cg_kernels.LAUNCHES)
-    say(3, f"launches {launches}, chunks routed {want}")
-    for name in launches:
-        if launches[name] != want[name] or launches[name] == 0:
-            raise AssertionError(f"{name}: {launches[name]} launches, {want[name]} chunks routed")
+        raise AssertionError(f"similar_items {tag}: items are not their own nearest neighbour")
     serve_ms = []
     for _ in range(3):
         t0 = time.perf_counter()
         model.recommend(users, liked, N=10)
         serve_ms.append((time.perf_counter() - t0) * 1e3)
-    say(3, f"recommend 1024 users N=10 filtered (f32 model): ms {[round(t, 2) for t in serve_ms]}")
-    del model, models
+    say(3, f"recommend 1024 users N=10 filtered ({tag} model): "
+           f"ms {[round(t, 2) for t in serve_ms]}")
+
+
+def phase_main_path(device):
+    import torch
+
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+
+    t0 = time.perf_counter()
+    plays = generate_synthetic(360_000, 160_000, 17_500_000, seed=0)
+    say(3, f"last.fm-shaped data {plays.shape} nnz={plays.nnz} in "
+           f"{time.perf_counter() - t0:.1f} s")
+    totals = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    f32, _, _, launches = fit_path("f=128 float32", plays, device, 128, np.float32, False)
+    add(launches)
+    _, _, _, launches = fit_path("f=128 bfloat16", plays, device, 128, np.float16, False)
+    add(launches)
+    quant, _, _, launches = fit_path("f=128 bfloat16 int8", plays, device, 128, np.float16, True)
+    add(launches)
+    # F=256: "auto" resolves by the JAX package's rule; the user table (184
+    # MB in bf16) is over 100 MiB, the item table (82 MB) under it, so only
+    # the item half, which gathers from the user table, runs int8
+    for gather_quant in ("auto", False):
+        model, sides, _, launches = fit_path(f"f=256 bfloat16 gather_quant={gather_quant}",
+                                             plays, device, 256, np.float16, gather_quant)
+        if gather_quant == "auto" and sides != (False, True):
+            raise AssertionError(f'gather_quant="auto" resolved to {sides}, not (False, True)')
+        add(launches)
+        del model
+    add(composed_cg_path(plays, device))
+    serve_checks("f=128 float32", f32, plays)
+    serve_checks("f=128 bfloat16 int8", quant, plays)
+    del f32, quant
     torch.cuda.empty_cache()
-    return launches, per_dtype
+    say(3, f"launches over the main paths {totals}")
+    missing = [k for k, v in totals.items() if not v]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main paths: {missing}")
+    return totals
 
 
-def phase_quality(device):
+def phase_quality(device, **kwargs):
     from scipy.sparse import csr_matrix
 
     from implicit_tpu_torch.als import AlternatingLeastSquares
@@ -240,13 +413,33 @@ def phase_quality(device):
         counts = csr_matrix((f["data"], f["indices"], f["indptr"]), shape=tuple(f["shape"]))
     train, test = train_test_split(counts, train_percentage=0.8, random_state=42)
     model = AlternatingLeastSquares(factors=64, regularization=0.05, random_state=3,
-                                    device=device)
+                                    device=device, **kwargs)
     model.fit(train, show_progress=False)
     p10 = float(precision_at_k(model, train, test, K=10, show_progress=False))
-    say(4, f"stdlib corpus {counts.shape} p@10 = {p10:.4f} (gate > 0.2)")
+    desc = "".join(f", {k}={getattr(v, '__name__', v)}" for k, v in kwargs.items())
+    say(4, f"stdlib corpus {counts.shape}{desc}: p@10 = {p10:.4f} (gate > 0.2)")
     if not p10 > 0.2:
-        raise AssertionError(f"p@10 {p10} <= 0.2")
+        raise AssertionError(f"p@10 {p10} <= 0.2 ({kwargs})")
     return p10
+
+
+def kernel_rows(kernels, launches):
+    """One row per kernel for the ``{"kernels": [...]}`` line: the main paths'
+    launches (all variants), the largest error, the float32 times, and each
+    variant's own numbers."""
+    rows = []
+    for name, spec in KERNELS.items():
+        res = kernels[name]
+        variants = {v: dict(launches=launches[f"{name}_{v}"], **res[v]) for v in VARIANTS}
+        rows.append({
+            "name": name, "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"],
+            "launches": sum(r["launches"] for r in variants.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in variants.values()),
+            "ms": res["f32"]["ms"], "plain_ms": res["f32"]["plain_ms"],
+            "shape_CLF": list(spec["shape"]), "variants": variants,
+        })
+    return rows
 
 
 def main():
@@ -267,20 +460,11 @@ def main():
            f"(nvcc per library, s: {json.dumps(_build.BUILD_SECONDS)})")
 
     kernels = phase_kernels(device)
-    launches, _ = phase_main_path(device)
+    launches = phase_main_path(device)
     phase_quality(device)
+    phase_quality(device, gather_quant=True, dtype=np.float16)
 
-    rows = []
-    for name, spec in KERNELS.items():
-        res = kernels[name]
-        rows.append({
-            "name": name, "route": "cuda", "source": spec["source"],
-            "replaces": spec["replaces"], "launches": launches[name],
-            "max_abs_err": res["max_abs_err"], "ms": res["ms_f32"],
-            "plain_ms": res["plain_ms_f32"], "ms_bf16": res["ms_bf16"],
-            "plain_ms_bf16": res["plain_ms_bf16"], "shape_CLF": list(spec["shape"]),
-        })
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": kernel_rows(kernels, launches)}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

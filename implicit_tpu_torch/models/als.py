@@ -77,9 +77,13 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
         Row-length bucketing grid; "auto" means "pow2".
     ingest : {"auto", "host", "device"}, optional
         Accepted for API parity; interactions are always packed on the host.
-    gather_quant : {False, "auto", True}, optional
-        False and "auto" solve against the unquantized table; True (int8
-        gather tables) is not ported yet and raises.
+    gather_quant : {False, True, "auto"}, optional
+        Solve against an int8 per-row-scaled copy of the fixed-side factor
+        table, dequantized inside the CUDA kernels (to bfloat16, as the JAX
+        package's TPU kernels do). "auto" enables it per side by the JAX
+        package's rule: only for 16-bit compute, and only for a side whose
+        gather table (the item table for the user side and vice versa) is
+        larger than ``ops.als.VMEM_PROMO_BYTES`` (100 MiB) in bfloat16.
     device : str or torch.device, optional
         Where the solves run and the serving tables live; default "cuda".
         Asking for CUDA where there is none raises.
@@ -129,13 +133,29 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
         if gather_quant not in ("auto", True, False):
             raise ValueError(
                 f"gather_quant must be 'auto', True or False, got {gather_quant!r}")
-        if gather_quant is True:
-            raise NotImplementedError("gather_quant=True (int8 gather tables) is not ported yet")
         self.gather_quant = gather_quant
 
         # cached f x f gramians
         self._YtY = None
         self._XtX = None
+
+    def _gather_quant_sides(self, n_users, n_items):
+        """gather_quant as per-side flags (user side, item side).
+
+        The user half-iteration gathers from the item table and the item
+        half from the user table. "auto" quantizes a side only for 16-bit
+        compute and only when that side's gather table is larger than
+        ``VMEM_PROMO_BYTES`` in bfloat16: the JAX package's rule
+        (``implicit_tpu/models/als.py:_gather_quant_sides``), so both
+        packages fit the same model from the same arguments. float32 models
+        are never quantized by "auto".
+        """
+        if self.gather_quant == "auto":
+            if self._compute_dtype != "bfloat16":
+                return (False, False)
+            lim = als_ops.VMEM_PROMO_BYTES
+            return (n_items * self.factors * 2 > lim, n_users * self.factors * 2 > lim)
+        return (bool(self.gather_quant),) * 2
 
     @property
     def _compute_dtype(self):
@@ -198,13 +218,14 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
             callback = self.fit_callback
         kw = dict(reg=self.regularization, use_cg=self.use_cg, cg_steps=self.cg_steps,
                   compute_dtype=self._compute_dtype)
+        gq_user, gq_item = self._gather_quant_sides(users, items)
 
         log.debug("Running %i ALS iterations", self.iterations)
         with tqdm(total=self.iterations, disable=not show_progress) as progress:
             for iteration in range(self.iterations):
                 s = time.time()
-                X = als_ops.solve_side(X, Y, user_buckets, **kw)
-                Y = als_ops.solve_side(Y, X, item_buckets, **kw)
+                X = als_ops.solve_side(X, Y, user_buckets, gather_quant=gq_user, **kw)
+                Y = als_ops.solve_side(Y, X, item_buckets, gather_quant=gq_item, **kw)
                 if (callback or self.calculate_training_loss) and self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 progress.update(1)

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled for Hopper (``sm_90a``) into a shared
 library with a plain C interface, ``build/<name>-<hash>.so`` in the package
-directory, where the hash covers the source, the shared header and the
-flags: a library is rebuilt when any of them changes. Builds happen on first
+directory, where the hash covers the source, every header in ``csrc/`` and
+the flags: a library is rebuilt when any of them changes. Builds happen on first
 use, never at import, and a failed build raises.
 """
 
@@ -26,16 +26,25 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def _variants(name, args):
+    """The f32 / bf16 / i8 entry points of one kernel: the int8 one takes
+    the per-row scales right after the table."""
+    return {f"{name}_f32": [_P, *args], f"{name}_bf16": [_P, *args],
+            f"{name}_i8": [_P, _P, *args]}
+
+
 # C signatures of every entry point, by library
 SIGNATURES = {
-    "cg_full": {
-        "cg_full_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "cg_full_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    },
-    "gramian_cg": {
-        "gramian_cg_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "gramian_cg_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    },
+    # (table, idx, dat, x0, yty, out, C, L, F, cg_steps, stream)
+    "cg_full": _variants("cg_full", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # (table, idx, dat, x0, yty, A, b, out, C, L, F, cg_steps, stream)
+    "gramian_cg": _variants("gramian_cg", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # (table, idx, w, bv, v, out, C, L, F, alpha, beta, stream)
+    "weighted_matvec": _variants("weighted_matvec",
+                                 [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P]),
 }
 
 _libs = {}
@@ -53,8 +62,10 @@ def nvcc_path():
 
 
 def _digest(name):
+    """Hash of the flags, ``<name>.cu`` and every header in ``csrc/``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fname in (f"{name}.cu", "cg_common.cuh"):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith((".cuh", ".h")))
+    for fname in (f"{name}.cu", *headers):
         with open(os.path.join(CSRC, fname), "rb") as fh:
             h.update(fh.read())
     return h.hexdigest()[:16]

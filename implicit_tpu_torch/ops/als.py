@@ -11,9 +11,15 @@ time, class by class (see :mod:`implicit_tpu_torch.sparse`):
 - ``use_cg=False`` solves the dense normal equations (the Cholesky/`posv`
   path of the reference) with batched ``torch.linalg.solve``.
 
-The kernels take float32 or bfloat16 factor tables. A float64 model solves
-through the plain composed CG (:func:`_cg_class`), as the JAX package sends
-float64 through its composed path: a dtype route, not a fallback.
+The kernels take float32 or bfloat16 factor tables, or the int8 table of
+``gather_quant`` (:func:`_quantize_table`), which travels as a ``(q, s)``
+pair and is dequantized inside them. A float64 model solves through the
+plain composed CG (:func:`_cg_class`), as the JAX package sends float64
+through its composed path: a dtype route, not a fallback. The composed
+routes (``_cho_class``, float64, ``_cg_class(use_pallas=False)``) read a
+``(q, s)`` pair dequantized at the scale dtype (:func:`_dequantize_table`),
+as the JAX package's do; the kernel routes dequantize to bfloat16 whatever
+the compute dtype, as the TPU kernels do.
 
 Confidences follow the reference: a negative value means "disliked"
 (P = 0, C = |c|); padding carries c == 0 and contributes nothing.
@@ -36,11 +42,44 @@ def _torch_dtype(compute_dtype):
     return _DTYPES[str(compute_dtype)]
 
 
+# The JAX package's gather_quant="auto" threshold on a gather table's bytes
+# (implicit_tpu/ops/als.py:VMEM_PROMO_BYTES): the TPU's alternate-memory
+# promotion boundary. Kept as that package's rule, so that both packages
+# resolve "auto" alike; it is not a property of the H100.
+VMEM_PROMO_BYTES = 100 * (1 << 20)
+
+
 def gramian(Y, reg):
     """YtY + reg*I in the solve precision: float64 for float64, else float32."""
     dt = torch.float64 if Y.dtype == torch.float64 else torch.float32
     Y = Y.to(dt)
     return Y.T @ Y + reg * torch.eye(Y.shape[1], dtype=dt, device=Y.device)
+
+
+def _quantize_table(Y, compute_dtype):
+    """(N, F) factors -> (int8 rows, per-row scales): the gather_quant table.
+
+    Symmetric per-row quantization, scale = max|row| / 127 (1 for an
+    all-zero row), q = round(y / scale) half to even, in float32: the same
+    math as ``implicit_tpu.ops.als._quantize_table``. The scales are
+    bfloat16 for 16-bit compute and float32 otherwise.
+    """
+    Yf = Y.float()
+    amax = Yf.abs().amax(1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.round(Yf / scale[:, None]).clamp(-127, 127).to(torch.int8)
+    sd = torch.bfloat16 if _torch_dtype(compute_dtype).itemsize == 2 else torch.float32
+    return q, scale.to(sd)
+
+
+def _dequantize_table(Yc):
+    """A ``(q, s)`` pair as a table at the scale dtype, the dequant of the
+    JAX package's composed routes (``ops/als.py:_gather_rows``); a plain
+    table is returned as it is."""
+    if not isinstance(Yc, tuple):
+        return Yc
+    q, s = Yc
+    return q.to(s.dtype) * s[:, None]
 
 
 def _weights(dat):
@@ -81,6 +120,17 @@ def _masked_cg(x, r, apply_a, cg_steps):
     return x
 
 
+def _composed_cg(x0, YtY_reg, sparse_term, cg_steps):
+    """Masked CG from ``x0`` with A v = sparse_term(v, 0, 1) + v YtY_reg.
+
+    ``sparse_term(v, alpha, beta)`` is sum_l (alpha bv + beta w (y_l . v)) y_l
+    over each row's entries (a weighted matvec); the residual is
+    sparse_term(x0, 1, -1) - x0 YtY_reg.
+    """
+    r = sparse_term(x0, 1.0, -1.0) - x0 @ YtY_reg
+    return _masked_cg(x0, r, lambda v: sparse_term(v, 0.0, 1.0) + v @ YtY_reg, cg_steps)
+
+
 def _class_chunks(cls):
     """(rows, idx, dat, n_valid) per chunk of a DeviceBucketClass."""
     return [(cls.rows[i], cls.indices[i], cls.data[i], cls.n_valid[i])
@@ -110,21 +160,45 @@ def _solve_class(X, chunks, solve_chunk):
     return X
 
 
-def _cg_class(X, Yc, YtY_reg, chunks, cg_steps):
-    """Composed (plain PyTorch) CG for one class; the float64 route."""
-    return _solve_class(X, chunks, lambda x0, idx, dat: cg_kernels.cg_solve_full_plain(
-        Yc, idx, dat, x0, YtY_reg, cg_steps))
+def _table_and_scales(Yc):
+    """(table, scales) of a gather table: a ``(q, s)`` pair, or (Y, None)."""
+    return Yc if isinstance(Yc, tuple) else (Yc, None)
+
+
+def _cg_class(X, Yc, YtY_reg, chunks, cg_steps, use_pallas=False):
+    """Composed CG for the chunks of one class.
+
+    ``use_pallas=False`` (the float64 route and ``cg_solve_scan``) runs the
+    plain composed CG on the table, a ``(q, s)`` pair dequantized at the
+    scale dtype. ``use_pallas=True`` takes :func:`cg_kernels.weighted_matvec`
+    as the sparse term of every pass, with the pair's scales, as the JAX
+    package's ``_cg_class(..., use_pallas=True)`` takes its Pallas kernel.
+    """
+    if not use_pallas:
+        Yd = _dequantize_table(Yc)
+        return _solve_class(X, chunks, lambda x0, idx, dat: cg_kernels.cg_solve_full_plain(
+            Yd, idx, dat, x0, YtY_reg, cg_steps))
+    Y, scales = _table_and_scales(Yc)
+
+    def solve_chunk(x0, idx, dat):
+        w, bv = _weights(dat)
+        return _composed_cg(x0, YtY_reg, lambda v, alpha, beta: cg_kernels.weighted_matvec(
+            Y, idx, w, bv, v, alpha, beta, scales=scales), cg_steps)
+
+    return _solve_class(X, chunks, solve_chunk)
 
 
 def _cho_class(X, Yc, YtY_reg, chunks):
     """Batched dense normal-equation solves (the Cholesky/`posv` path).
 
     LU (``torch.linalg.solve``) tolerates the rank-deficient A of tiny or
-    unregularized problems, as the JAX package's default does.
+    unregularized problems, as the JAX package's default does. A ``(q, s)``
+    pair is dequantized at the scale dtype.
     """
+    Yd = _dequantize_table(Yc)
 
     def solve_chunk(x0, idx, dat):
-        A, b = cg_kernels.normal_equations(Yc, idx, dat, YtY_reg)
+        A, b = cg_kernels.normal_equations(Yd, idx, dat, YtY_reg)
         return torch.linalg.solve(A, b[..., None])[..., 0]
 
     return _solve_class(X, chunks, solve_chunk)
@@ -132,14 +206,16 @@ def _cho_class(X, Yc, YtY_reg, chunks):
 
 def _cg_full_class(X, Yc, YtY_reg, chunks, cg_steps):
     """Matrix-free CG kernel for one class of short rows."""
+    Y, scales = _table_and_scales(Yc)
     return _solve_class(X, chunks, lambda x0, idx, dat: cg_kernels.cg_solve_full(
-        Yc, idx, dat, x0, YtY_reg, cg_steps))
+        Y, idx, dat, x0, YtY_reg, cg_steps, scales=scales))
 
 
 def _long_row_class(X, Yc, YtY_reg, chunks, cg_steps):
     """Explicit-normal-matrix CG kernel for one class of long rows."""
+    Y, scales = _table_and_scales(Yc)
     return _solve_class(X, chunks, lambda x0, idx, dat: cg_kernels.gramian_cg_solve(
-        Yc, idx, dat, x0, YtY_reg, cg_steps))
+        Y, idx, dat, x0, YtY_reg, cg_steps, scales=scales))
 
 
 def _full_cg_max_l(compute_dtype, factors=128):
@@ -156,7 +232,8 @@ def _full_cg_max_l(compute_dtype, factors=128):
 
 
 def _solve_side_core(X, Yc, YtY_reg, buckets, use_cg, cg_steps, compute_dtype):
-    """Half-iteration with the gather table and gramian precomputed."""
+    """Half-iteration with the gather table (a tensor or a ``(q, s)`` pair)
+    and the gramian precomputed."""
     factors = X.shape[1]
     max_l = _full_cg_max_l(compute_dtype, factors)
     f64 = _torch_dtype(compute_dtype) == torch.float64
@@ -175,11 +252,14 @@ def _solve_side_core(X, Yc, YtY_reg, buckets, use_cg, cg_steps, compute_dtype):
     return X
 
 
-def solve_side(X, Y, buckets, reg, use_cg=True, cg_steps=3, compute_dtype="float32"):
+def solve_side(X, Y, buckets, reg, use_cg=True, cg_steps=3, compute_dtype="float32",
+               gather_quant=False):
     """One ALS half-iteration: re-solve X given Y over bucketed chunks.
 
     ``buckets`` is a DeviceBuckets on X's device (or a BucketedCSR, uploaded
     here). Rows with no interactions are zeroed, every other row re-solved.
+    ``gather_quant=True`` gathers from an int8 per-row-scaled copy of ``Y``
+    (:func:`_quantize_table`); the gramian stays on the unquantized ``Y``.
     X is updated in place and returned.
     """
     from ..sparse import BucketedCSR
@@ -187,16 +267,27 @@ def solve_side(X, Y, buckets, reg, use_cg=True, cg_steps=3, compute_dtype="float
     if isinstance(buckets, BucketedCSR):
         buckets = buckets.to_device(X.device)
     YtY_reg = gramian(Y, reg)
-    Yc = Y.to(_torch_dtype(compute_dtype))
+    if gather_quant:
+        Yc = _quantize_table(Y, compute_dtype)
+    else:
+        Yc = Y.to(_torch_dtype(compute_dtype))
     return _solve_side_core(X, Yc, YtY_reg, buckets, use_cg, cg_steps, compute_dtype)
 
 
 def fit(X, Y, user_buckets, item_buckets, reg, iterations, use_cg=True, cg_steps=3,
-        compute_dtype="float32"):
-    """Runs ``iterations`` full ALS iterations; X and Y are updated in place."""
+        compute_dtype="float32", gather_quant=False):
+    """Runs ``iterations`` full ALS iterations; X and Y are updated in place.
+
+    ``gather_quant`` is a bool (both half-iterations) or a ``(user_side,
+    item_side)`` pair: the user side gathers from the item table, the item
+    side from the user table.
+    """
+    if not isinstance(gather_quant, (tuple, list)):
+        gather_quant = (gather_quant, gather_quant)
+    gq_user, gq_item = (bool(g) for g in gather_quant)
     for _ in range(iterations):
-        X = solve_side(X, Y, user_buckets, reg, use_cg, cg_steps, compute_dtype)
-        Y = solve_side(Y, X, item_buckets, reg, use_cg, cg_steps, compute_dtype)
+        X = solve_side(X, Y, user_buckets, reg, use_cg, cg_steps, compute_dtype, gq_user)
+        Y = solve_side(Y, X, item_buckets, reg, use_cg, cg_steps, compute_dtype, gq_item)
     return X, Y
 
 

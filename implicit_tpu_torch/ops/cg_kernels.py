@@ -1,20 +1,27 @@
 """Wrappers of the CUDA solve kernels, with their plain PyTorch versions.
 
-Two kernels carry the ALS fit (sources in ``csrc/``, notes at their heads):
+Three kernels carry the ALS solves (sources in ``csrc/``, notes at their
+heads), one for each TPU kernel of ``implicit_tpu/ops/pallas_ops.py``:
 
-- :func:`cg_solve_full` (``csrc/cg_full.cu``) replaces
-  ``implicit_tpu/ops/pallas_ops.py:_cg_full_kernel``: the whole warm-started
-  masked CG solve of each row, matrix-free.
+- :func:`cg_solve_full` (``csrc/cg_full.cu``) replaces ``_cg_full_kernel``:
+  the whole warm-started masked CG solve of each row, matrix-free.
 - :func:`gramian_cg_solve` (``csrc/gramian_cg.cu``) replaces
-  ``implicit_tpu/ops/pallas_ops.py:_gramian_cg_kernel``: explicit per-row
-  normal matrix, then the same CG on it, for long rows.
+  ``_gramian_cg_kernel``: explicit per-row normal matrix, then the same CG
+  on it, for long rows.
+- :func:`weighted_matvec` (``csrc/weighted_matvec.cu``) replaces
+  ``_weighted_matvec_kernel``: one pass of the CG's sparse term, the
+  building block of the composed CG (``ops/als.py:_cg_class``).
 
-Both take the factor table and the chunk's indices, ``(Y (N, F), idx (C, L)
-int32, dat (C, L), x0 (C, F), YtY_reg (F, F), cg_steps)``, and gather
-``Y[idx]`` inside the kernel. A wrapper runs its kernel for CUDA tensors and
+Each takes the factor table and the chunk's indices, ``Y (N, F)`` and
+``idx (C, L) int32``, and gathers ``Y[idx]`` inside the kernel. ``Y`` is
+float32 or bfloat16, or int8 with ``scales (N,)``: one scale per row (the
+``gather_quant`` table of ``ops/als.py:_quantize_table``), dequantized as
+the TPU kernels' ``_dequant_tile`` does, to ``bf16(q * bf16(s))``
+(:func:`dequantize_rows`). A wrapper runs its kernel for CUDA tensors and
 raises on anything the kernel does not take; it uses the plain version only
-for tensors on the CPU. ``LAUNCHES`` counts kernel launches, so a run can
-show that it went through the kernels.
+for tensors on the CPU. ``LAUNCHES`` counts kernel launches per C entry
+point (kernel and table type), so a run can show that it went through the
+kernels.
 
 ``idx`` must index rows of ``Y`` (the bucketed CSR guarantees it); the
 kernels do not bounds-check it.
@@ -24,15 +31,29 @@ import torch
 
 from . import _build
 
-LAUNCHES = {"cg_full": 0, "gramian_cg": 0}
+KERNELS = ("cg_full", "gramian_cg", "weighted_matvec")
+VARIANTS = ("f32", "bf16", "i8")
+LAUNCHES = {f"{k}_{v}": 0 for k in KERNELS for v in VARIANTS}
 
 # widest factor vector the kernels hold in registers (8 values per lane)
 MAX_FACTORS = 256
+
+# the float32 operands of the kernels, by argument name, and their shapes
+_SHAPES = {"dat": "CL", "w": "CL", "bv": "CL", "x0": "CF", "v": "CF", "YtY_reg": "FF"}
 
 
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def dequantize_rows(q, s):
+    """int8 rows ``q (..., F)`` times their scales ``s (...)``, as bfloat16.
+
+    ``bf16(q * bf16(s))``: the TPU kernels' ``_dequant_tile``, and what the
+    CUDA kernels' row loader computes.
+    """
+    return q.to(torch.bfloat16) * s.to(torch.bfloat16)[..., None]
 
 
 def weighted_matvec_reference(Yu, w, bv, v, alpha, beta):
@@ -48,121 +69,161 @@ def weighted_matvec_reference(Yu, w, bv, v, alpha, beta):
     return torch.einsum("cl,clf->cf", coeff, Yf)
 
 
-def _acc_dtype(Y):
-    return torch.float64 if Y.dtype == torch.float64 else torch.float32
+def _gather(Y, idx, scales=None):
+    """The block ``Y[idx] (C, L, F)`` in its accumulation dtype: float64 for
+    a float64 table, else float32; an int8 table is dequantized first."""
+    idx = idx.long()
+    if scales is not None:
+        return dequantize_rows(Y[idx], scales[idx]).float()
+    return Y[idx].to(torch.float64 if Y.dtype == torch.float64 else torch.float32)
 
 
-def cg_solve_full_plain(Y, idx, dat, x0, YtY_reg, cg_steps=3):
+def weighted_matvec_plain(Y, idx, w, bv, v, alpha, beta, scales=None):
+    """Plain PyTorch version of :func:`weighted_matvec` (same arguments)."""
+    return weighted_matvec_reference(_gather(Y, idx, scales), w, bv, v, alpha, beta)
+
+
+def cg_solve_full_plain(Y, idx, dat, x0, YtY_reg, cg_steps=3, scales=None):
     """Plain PyTorch version of :func:`cg_solve_full` (same arguments)."""
-    from .als import _masked_cg, _weights
+    from .als import _composed_cg, _weights
 
-    acc = _acc_dtype(Y)
-    Yu = Y[idx.long()].to(acc)  # (C, L, F)
-    w, bv = _weights(dat.to(acc))
-    yty = YtY_reg.to(acc)
-    x0 = x0.to(acc)
-    r = weighted_matvec_reference(Yu, w, bv, x0, 1.0, -1.0) - x0 @ yty
-    return _masked_cg(
-        x0, r, lambda v: weighted_matvec_reference(Yu, w, bv, v, 0.0, 1.0) + v @ yty,
-        cg_steps)
+    Yu = _gather(Y, idx, scales)
+    w, bv = _weights(dat.to(Yu.dtype))
+    return _composed_cg(
+        x0.to(Yu.dtype), YtY_reg.to(Yu.dtype),
+        lambda v, alpha, beta: weighted_matvec_reference(Yu, w, bv, v, alpha, beta), cg_steps)
 
 
-def normal_equations(Y, idx, dat, YtY_reg):
+def normal_equations(Y, idx, dat, YtY_reg, scales=None):
     """Each row's A = YtY_reg + sum_l w y y^T and b = sum_l bv y, plain PyTorch."""
     from .als import _weights
 
-    acc = _acc_dtype(Y)
-    Yu = Y[idx.long()].to(acc)  # (C, L, F)
-    w, bv = _weights(dat.to(acc))
-    A = YtY_reg.to(acc) + torch.einsum("clf,clg->cfg", Yu * w[..., None], Yu)
+    Yu = _gather(Y, idx, scales)
+    w, bv = _weights(dat.to(Yu.dtype))
+    A = YtY_reg.to(Yu.dtype) + torch.einsum("clf,clg->cfg", Yu * w[..., None], Yu)
     return A, torch.einsum("cl,clf->cf", bv, Yu)
 
 
-def gramian_cg_solve_plain(Y, idx, dat, x0, YtY_reg, cg_steps=3):
+def gramian_cg_solve_plain(Y, idx, dat, x0, YtY_reg, cg_steps=3, scales=None):
     """Plain PyTorch version of :func:`gramian_cg_solve` (same arguments)."""
     from .als import _masked_cg
 
-    A, b = normal_equations(Y, idx, dat, YtY_reg)
+    A, b = normal_equations(Y, idx, dat, YtY_reg, scales)
     x0 = x0.to(A.dtype)
     r = b - torch.einsum("cfg,cg->cf", A, x0)
     return _masked_cg(x0, r, lambda v: torch.einsum("cfg,cg->cf", A, v), cg_steps)
 
 
-def _check_args(Y, idx, dat, x0, YtY_reg):
-    """Raises on any argument the CUDA kernels do not take."""
+def _check_args(Y, idx, scales, **operands):
+    """Raises on any argument the CUDA kernels do not take; returns (C, L, F).
+
+    ``Y`` is float32 or bfloat16 with ``scales=None``, or int8 with float32
+    or bfloat16 ``scales (N,)``; ``operands`` are the float32 arguments by
+    name (shapes in ``_SHAPES``). Everything lies on one CUDA device,
+    contiguous.
+    """
+    if scales is None:
+        if Y.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"Y must be float32 or bfloat16 (or int8 with scales), got {Y.dtype}")
+    else:
+        if Y.dtype != torch.int8:
+            raise TypeError(f"with scales, Y must be int8, got {Y.dtype}")
+        if scales.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"scales must be float32 or bfloat16, got {scales.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be torch.int32, got {idx.dtype}")
+    for name, t in operands.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be torch.float32, got {t.dtype}")
+    tensors = dict(Y=Y, idx=idx, **operands)
+    if scales is not None:
+        tensors["scales"] = scales
     dev = Y.device
-    if dev.type != "cuda":
-        raise ValueError(f"the solve kernels run on CUDA tensors, got {dev}")
-    if Y.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"Y must be float32 or bfloat16, got {Y.dtype}")
-    want = {"idx": (idx, torch.int32), "dat": (dat, torch.float32),
-            "x0": (x0, torch.float32), "YtY_reg": (YtY_reg, torch.float32)}
-    for name, (t, dtype) in want.items():
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    for name, t in dict(Y=Y, **{k: v[0] for k, v in want.items()}).items():
+    for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, Y on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if Y.dim() != 2 or idx.dim() != 2:
         raise ValueError("Y must be (N, F) and idx (C, L)")
-    F = Y.shape[1]
-    C, L = idx.shape
-    if dat.shape != (C, L) or x0.shape != (C, F) or YtY_reg.shape != (F, F):
-        raise ValueError(
-            f"shape mismatch: Y {tuple(Y.shape)}, idx {tuple(idx.shape)}, dat "
-            f"{tuple(dat.shape)}, x0 {tuple(x0.shape)}, YtY_reg {tuple(YtY_reg.shape)}")
+    (C, L), F = idx.shape, Y.shape[1]
+    sizes = {"C": C, "L": L, "F": F}
+    for name, t in operands.items():
+        want = tuple(sizes[d] for d in _SHAPES[name])
+        if tuple(t.shape) != want:
+            raise ValueError(f"shape mismatch: {name} is {tuple(t.shape)}, want {want} "
+                             f"for Y {tuple(Y.shape)}, idx {tuple(idx.shape)}")
+    if scales is not None and tuple(scales.shape) != (Y.shape[0],):
+        raise ValueError(f"shape mismatch: scales is {tuple(scales.shape)}, want ({Y.shape[0]},)")
     if F > MAX_FACTORS:
         raise NotImplementedError(
             f"the CUDA solve kernels take factors <= {MAX_FACTORS}, got {F}")
+    if dev.type != "cuda":
+        raise ValueError(f"the solve kernels run on CUDA tensors, got {dev}")
     return C, L, F
 
 
-def _suffix(Y):
-    return "bf16" if Y.dtype == torch.bfloat16 else "f32"
+def _launch(kernel, Y, idx, scales, args):
+    """Launches ``<kernel>_<variant>`` on Y's device and current stream.
+
+    ``args`` follow the table (and its scales) in the C signature: tensors
+    pass as pointers, Python numbers as they are. Returns the C call's
+    result after counting the launch.
+    """
+    variant = "i8" if scales is not None else ("bf16" if Y.dtype == torch.bfloat16 else "f32")
+    lib = _build.load(kernel)[kernel]
+    # the kernels read float32 scales; a bfloat16 scale converts exactly
+    table = (Y,) if scales is None else (Y, scales.float())
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in (*table, idx, *args)]
+    with torch.cuda.device(Y.device):  # the C side launches on the current device
+        stream = torch.cuda.current_stream(Y.device).cuda_stream
+        rc = getattr(lib, f"{kernel}_{variant}")(*ptrs, stream)
+    _build.check(lib, rc, f"{kernel}_{variant} launch")
+    LAUNCHES[f"{kernel}_{variant}"] += 1
 
 
-def cg_solve_full(Y, idx, dat, x0, YtY_reg, cg_steps=3):
+def cg_solve_full(Y, idx, dat, x0, YtY_reg, cg_steps=3, scales=None):
     """Warm-started masked CG solve of one chunk; returns (C, F) float32 x.
 
     CUDA tensors launch ``csrc/cg_full.cu``; CPU tensors take the plain
     version.
     """
     if Y.device.type == "cpu":
-        return cg_solve_full_plain(Y, idx, dat, x0, YtY_reg, cg_steps)
-    C, L, F = _check_args(Y, idx, dat, x0, YtY_reg)
-    lib = _build.load("cg_full")["cg_full"]
+        return cg_solve_full_plain(Y, idx, dat, x0, YtY_reg, cg_steps, scales)
+    C, L, F = _check_args(Y, idx, scales, dat=dat, x0=x0, YtY_reg=YtY_reg)
     out = torch.empty_like(x0)
-    fn = getattr(lib, f"cg_full_{_suffix(Y)}")
-    with torch.cuda.device(Y.device):  # the C side launches on the current device
-        stream = torch.cuda.current_stream(Y.device).cuda_stream
-        rc = fn(Y.data_ptr(), idx.data_ptr(), dat.data_ptr(), x0.data_ptr(),
-                YtY_reg.data_ptr(), out.data_ptr(), C, L, F, int(cg_steps), stream)
-    _build.check(lib, rc, "cg_full launch")
-    LAUNCHES["cg_full"] += 1
+    _launch("cg_full", Y, idx, scales, (dat, x0, YtY_reg, out, C, L, F, int(cg_steps)))
     return out
 
 
-def gramian_cg_solve(Y, idx, dat, x0, YtY_reg, cg_steps=3):
+def gramian_cg_solve(Y, idx, dat, x0, YtY_reg, cg_steps=3, scales=None):
     """Long-row solve of one chunk: explicit A + masked CG; (C, F) float32.
 
     CUDA tensors launch ``csrc/gramian_cg.cu`` (with a (C, F, F) + (C, F)
     float32 scratch allocated here); CPU tensors take the plain version.
     """
     if Y.device.type == "cpu":
-        return gramian_cg_solve_plain(Y, idx, dat, x0, YtY_reg, cg_steps)
-    C, L, F = _check_args(Y, idx, dat, x0, YtY_reg)
-    lib = _build.load("gramian_cg")["gramian_cg"]
+        return gramian_cg_solve_plain(Y, idx, dat, x0, YtY_reg, cg_steps, scales)
+    C, L, F = _check_args(Y, idx, scales, dat=dat, x0=x0, YtY_reg=YtY_reg)
     out = torch.empty_like(x0)
     A = torch.empty((C, F, F), dtype=torch.float32, device=Y.device)
     b = torch.empty((C, F), dtype=torch.float32, device=Y.device)
-    fn = getattr(lib, f"gramian_cg_{_suffix(Y)}")
-    with torch.cuda.device(Y.device):
-        stream = torch.cuda.current_stream(Y.device).cuda_stream
-        rc = fn(Y.data_ptr(), idx.data_ptr(), dat.data_ptr(), x0.data_ptr(),
-                YtY_reg.data_ptr(), A.data_ptr(), b.data_ptr(), out.data_ptr(),
-                C, L, F, int(cg_steps), stream)
-    _build.check(lib, rc, "gramian_cg launch")
-    LAUNCHES["gramian_cg"] += 1
+    _launch("gramian_cg", Y, idx, scales,
+            (dat, x0, YtY_reg, A, b, out, C, L, F, int(cg_steps)))
+    return out
+
+
+def weighted_matvec(Y, idx, w, bv, v, alpha, beta, scales=None):
+    """sum_l (alpha * bv + beta * w * (y_l . v)) * y_l per row, y_l = Y[idx];
+    returns (C, F) float32.
+
+    CUDA tensors launch ``csrc/weighted_matvec.cu``; CPU tensors take the
+    plain version.
+    """
+    if Y.device.type == "cpu":
+        return weighted_matvec_plain(Y, idx, w, bv, v, alpha, beta, scales)
+    C, L, F = _check_args(Y, idx, scales, w=w, bv=bv, v=v)
+    out = torch.empty_like(v)
+    _launch("weighted_matvec", Y, idx, scales,
+            (w, bv, v, out, C, L, F, float(alpha), float(beta)))
     return out

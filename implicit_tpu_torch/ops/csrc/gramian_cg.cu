@@ -1,8 +1,9 @@
 // Long-row solve: explicit normal matrix per row, then masked CG on it.
 //
 // Replaces the TPU kernel implicit_tpu/ops/pallas_ops.py:_gramian_cg_kernel
-// (reached through gramian_cg_solve). For row c, with w = |d| - 1 and
-// bv = max(d, 0) where d != 0 and y_l = Y[idx[c, l]]:
+// (reached through gramian_cg_solve), including its int8 variant (scales=,
+// dequantized by the row loader of cg_common.cuh). For row c, with
+// w = |d| - 1 and bv = max(d, 0) where d != 0 and y_l = Y[idx[c, l]]:
 //
 //   A[c] = YtY_reg + sum_l w_l y_l y_l^T,   b[c] = sum_l bv_l y_l
 //
@@ -22,6 +23,8 @@
 // Bound: FMAs. The build does 2 * L * F^2 flops per row against L * F
 // gathered values; at L >> F that is above what the CUDA cores sustain at
 // the row's bytes. Tensor cores (wgmma) are the next step for this kernel.
+// The int8 table changes only the loads: a quarter of the float32 bytes and
+// one scale per staged entry, with the same FMAs.
 
 #include "cg_common.cuh"
 
@@ -32,9 +35,10 @@ constexpr int kChunk = 32;     // row entries staged per shared-memory round
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 A values each
 constexpr int kCgWarps = 8;
 
-template <typename T>
+template <class Rows>
 __global__ void __launch_bounds__(kThreads)
-gramian_build_kernel(const T* __restrict__ Y, const int* __restrict__ idx,
+gramian_build_kernel(const typename Rows::Elem* __restrict__ Y, const float* __restrict__ S,
+                     const int* __restrict__ idx,
                      const float* __restrict__ dat, const float* __restrict__ yty,
                      float* __restrict__ At, float* __restrict__ b, int L, int F) {
   __shared__ float yi[kChunk][kTile];  // w_l * y_l over the row tile
@@ -62,19 +66,20 @@ gramian_build_kernel(const T* __restrict__ Y, const int* __restrict__ idx,
     const int n = min(kChunk, L - l0);
     if (threadIdx.x < kChunk) {
       const int l = threadIdx.x;
-      const float d = l < n ? cd[l0 + l] : 0.f;
-      ws[l] = d != 0.f ? fabsf(d) - 1.f : 0.f;
-      bvs[l] = fmaxf(d, 0.f);
+      const float2 wb = DatEntries::weights(l < n ? cd[l0 + l] : 0.f);
+      ws[l] = wb.x;
+      bvs[l] = wb.y;
       is[l] = l < n ? ci[l0 + l] : 0;
     }
     __syncthreads();
     for (int e = threadIdx.x; e < kChunk * kTile; e += kThreads) {
       const int l = e / kTile, f = e % kTile;
       const int fi = ti * kTile + f, fj = tj * kTile + f;
-      const T* yr = Y + (size_t)is[l] * F;
+      const typename Rows::Elem* yr = Y + (size_t)is[l] * F;
+      const float sc = Rows::scale(S, is[l]);
       const bool live = l < n;
-      yi[l][f] = (live && fi < F) ? to_f(yr[fi]) * ws[l] : 0.f;
-      yj[l][f] = (live && fj < F) ? to_f(yr[fj]) : 0.f;
+      yi[l][f] = (live && fi < F) ? Rows::at(yr, sc, fi) * ws[l] : 0.f;
+      yj[l][f] = (live && fj < F) ? Rows::at(yr, sc, fj) : 0.f;
     }
     __syncthreads();
     for (int l = 0; l < n; ++l) {
@@ -149,15 +154,17 @@ int launch_cg(const float* At, const float* b, const float* x0, float* out, int 
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* Y, const void* idx, const void* dat, const void* x0, const void* yty,
-             void* A, void* b, void* out, int C, int L, int F, int cg_steps, void* stream) {
+template <class Rows>
+int dispatch(const void* Y, const void* S, const void* idx, const void* dat, const void* x0,
+             const void* yty, void* A, void* b, void* out, int C, int L, int F, int cg_steps,
+             void* stream) {
   if (C <= 0) return (int)cudaSuccess;
   if (F > 256) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nt = (F + kTile - 1) / kTile;
-  gramian_build_kernel<T><<<dim3(C, nt, nt), kThreads, 0, s>>>(
-      static_cast<const T*>(Y), static_cast<const int*>(idx), static_cast<const float*>(dat),
+  gramian_build_kernel<Rows><<<dim3(C, nt, nt), kThreads, 0, s>>>(
+      static_cast<const typename Rows::Elem*>(Y), static_cast<const float*>(S),
+      static_cast<const int*>(idx), static_cast<const float*>(dat),
       static_cast<const float*>(yty), static_cast<float*>(A), static_cast<float*>(b), L, F);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -180,12 +187,22 @@ int dispatch(const void* Y, const void* idx, const void* dat, const void* x0, co
 extern "C" int gramian_cg_f32(const void* Y, const void* idx, const void* dat, const void* x0,
                               const void* yty, void* A, void* b, void* out, int C, int L,
                               int F, int cg_steps, void* stream) {
-  return als::dispatch<float>(Y, idx, dat, x0, yty, A, b, out, C, L, F, cg_steps, stream);
+  return als::dispatch<als::TableRows<float>>(Y, nullptr, idx, dat, x0, yty, A, b, out, C, L, F,
+                                              cg_steps, stream);
 }
 
 extern "C" int gramian_cg_bf16(const void* Y, const void* idx, const void* dat, const void* x0,
                                const void* yty, void* A, void* b, void* out, int C, int L,
                                int F, int cg_steps, void* stream) {
-  return als::dispatch<__nv_bfloat16>(Y, idx, dat, x0, yty, A, b, out, C, L, F, cg_steps,
-                                      stream);
+  return als::dispatch<als::TableRows<__nv_bfloat16>>(Y, nullptr, idx, dat, x0, yty, A, b, out,
+                                                      C, L, F, cg_steps, stream);
+}
+
+// The int8 table: Yq (N, F) int8 and its per-row scales s (N,) float32;
+// the other arguments as above.
+extern "C" int gramian_cg_i8(const void* Yq, const void* s, const void* idx, const void* dat,
+                             const void* x0, const void* yty, void* A, void* b, void* out,
+                             int C, int L, int F, int cg_steps, void* stream) {
+  return als::dispatch<als::QuantRows>(Yq, s, idx, dat, x0, yty, A, b, out, C, L, F, cg_steps,
+                                       stream);
 }

@@ -1,4 +1,4 @@
-"""The CUDA solve kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it also runs where JAX is not installed; there, skip the
@@ -8,7 +8,9 @@ repository's conftest (which imports JAX):
 
 Tolerance: kernel and plain version read the same inputs and accumulate in
 float32 in different orders; rtol = atol = 2e-3 is the JAX package's bar
-for its kernels, and float32 is held to 1e-4.
+for its kernels, and float32 is held to 1e-4. The int8 variants are held
+to 1e-4 too: kernel and plain version dequantize to the same bfloat16
+values and both accumulate in float32.
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from implicit_tpu_torch.ops import cg_kernels
+from implicit_tpu_torch.ops.als import _quantize_table, _weights
 
 pytestmark = pytest.mark.cuda
 
@@ -56,12 +59,51 @@ def test_kernel_matches_plain(cuda, name, F, dtype):
     kernel, plain = KERNELS[name]
     C, L = (37, 80) if name == "cg_full" else (13, 300)
     args = _case(C, L, F, seed=F, device=cuda, dtype=dtype)
-    before = cg_kernels.LAUNCHES[name]
+    key = f"{name}_{'f32' if dtype == torch.float32 else 'bf16'}"
+    before = cg_kernels.LAUNCHES[key]
     got = kernel(*args, cg_steps=3)
     torch.cuda.synchronize()
-    assert cg_kernels.LAUNCHES[name] == before + 1
+    assert cg_kernels.LAUNCHES[key] == before + 1
     want = plain(*args, cg_steps=3)
     tol = 1e-4 if dtype == torch.float32 else 2e-3
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [8, 32, 64, 100, 128, 200, 256])
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_int8_kernel_matches_plain(cuda, name, F, compute):
+    kernel, plain = KERNELS[name]
+    C, L = (37, 80) if name == "cg_full" else (13, 300)
+    Y, idx, dat, x0, yty = _case(C, L, F, seed=F + 1, device=cuda, dtype=torch.float32)
+    q, s = _quantize_table(Y, compute)  # float32 or bfloat16 scales
+    before = cg_kernels.LAUNCHES[f"{name}_i8"]
+    got = kernel(q, idx, dat, x0, yty, cg_steps=3, scales=s)
+    torch.cuda.synchronize()
+    assert cg_kernels.LAUNCHES[f"{name}_i8"] == before + 1
+    want = plain(q, idx, dat, x0, yty, cg_steps=3, scales=s)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("alpha,beta", [(1.0, -1.0), (0.0, 1.0)])
+@pytest.mark.parametrize("variant", ["f32", "bf16", "i8"])
+@pytest.mark.parametrize("F", [8, 32, 100, 128, 256])
+def test_weighted_matvec_matches_plain(cuda, F, variant, alpha, beta):
+    C, L = 37, 83  # L not a multiple of 32: the row loop ends mid-group
+    Y, idx, dat, x0, _ = _case(C, L, F, seed=F + 2, device=cuda, dtype=torch.float32)
+    w, bv = _weights(dat)
+    v = x0 * 10
+    scales = None
+    if variant == "bf16":
+        Y = Y.to(torch.bfloat16)
+    elif variant == "i8":
+        Y, scales = _quantize_table(Y, "bfloat16")
+    before = cg_kernels.LAUNCHES[f"weighted_matvec_{variant}"]
+    got = cg_kernels.weighted_matvec(Y, idx, w, bv, v, alpha, beta, scales=scales)
+    torch.cuda.synchronize()
+    assert cg_kernels.LAUNCHES[f"weighted_matvec_{variant}"] == before + 1
+    want = cg_kernels.weighted_matvec_plain(Y, idx, w, bv, v, alpha, beta, scales=scales)
+    tol = 2e-3 if variant == "bf16" else 1e-4
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
 
 

@@ -210,7 +210,6 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("kwargs,error", [
     (dict(device="meta"), ValueError),
-    (dict(gather_quant=True), NotImplementedError),
     (dict(mesh=2), NotImplementedError),
     (dict(grid="coarse"), ValueError),
     (dict(ingest="remote"), ValueError),
