@@ -14,7 +14,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. each kernel against its plain PyTorch version on the card, in float32,
    bfloat16 and int8 (per-row scales), at the fit's own class shapes, with
    times; the same bar must reject a deliberately wrong plain version (one
-   CG step short; for weighted_matvec each row's last entry dropped);
+   CG step short; for weighted_matvec each row's last entry dropped).
+   ``gramian_cg`` also runs at the fit's head-class shape, where each row
+   is split over many blocks, must give the same bits twice, and in
+   float32 must land 10x closer to the plain version than the plain
+   version run in TF32;
 3. the main paths, each with the launch counters set to 0 just before it
    and read just after, which must show every routed chunk:
    ``AlternatingLeastSquares.fit`` at the last.fm-360k shape (360k users x
@@ -60,7 +64,10 @@ KERNELS = {
     "gramian_cg": dict(
         source="implicit_tpu_torch/ops/csrc/gramian_cg.cu",
         replaces="implicit_tpu/ops/pallas_ops.py:292",
-        shape=(256, 8192, 128)),  # a long-row (head item) class
+        shape=(256, 8192, 128),  # a long-row (head item) class: the yardstick
+        # the fit's head class at f=128 (L=65536, C=8): few rows, each split
+        # over many L-slices
+        head_shape=(8, 65536, 128)),
     "weighted_matvec": dict(
         source="implicit_tpu_torch/ops/csrc/weighted_matvec.cu",
         replaces="implicit_tpu/ops/pallas_ops.py:46",
@@ -117,14 +124,14 @@ def kernel_case(C, L, F, dtype, seed, device):
     return t(Y).to(dtype), t(idx), t(dat), t(x0), t(yty)
 
 
-def variant_case(name, variant, device):
-    """``kernel_case`` for one kernel's shape, with the table as the variant
-    has it: float32, bfloat16, or int8 + scales quantized from it."""
+def variant_case(shape, variant, device):
+    """``kernel_case`` at ``shape``, with the table as the variant has it:
+    float32, bfloat16, or int8 + scales quantized from it."""
     import torch
 
     from implicit_tpu_torch.ops.als import _quantize_table
 
-    C, L, F = KERNELS[name]["shape"]
+    C, L, F = shape
     Y, idx, dat, x0, yty = kernel_case(C, L, F, torch.float32, seed=C + L, device=device)
     scales = None
     if variant == "bf16":
@@ -166,6 +173,27 @@ def check_against(tag, got, want, wrong, tol, what_wrong):
     return dict(max_abs_err=err, bar=bar, wrong_ref_err=wrong_err)
 
 
+def tf32_check(tag, got, ref):
+    """The float32 kernel against the float32 plain version must land at
+    least 10x closer than the same plain version run in TF32 does: the 1e-4
+    bar alone would pass a single-pass TF32 kernel."""
+    import torch
+
+    want = ref()
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = ref()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    err = float((got - want).abs().max())
+    tf32_err = float((tf32 - want).abs().max())
+    if not err <= 0.1 * tf32_err:
+        raise AssertionError(f"{tag}: error {err:.3e} is not 10x under the TF32 plain "
+                             f"version's {tf32_err:.3e}")
+    return tf32_err
+
+
 def phase_kernels(device):
     import torch
 
@@ -175,10 +203,11 @@ def phase_kernels(device):
     solves = {"cg_full": (cg_kernels.cg_solve_full, cg_kernels.cg_solve_full_plain),
               "gramian_cg": (cg_kernels.gramian_cg_solve, cg_kernels.gramian_cg_solve_plain)}
     results = {name: {} for name in KERNELS}
-    for name in KERNELS:
-        C, L, F = KERNELS[name]["shape"]
+    cases = [(name, "shape") for name in KERNELS] + [("gramian_cg", "head_shape")]
+    for name, which in cases:
+        C, L, F = shape = KERNELS[name][which]
         for variant in VARIANTS:
-            Y, scales, idx, dat, x0, yty = variant_case(name, variant, device)
+            Y, scales, idx, dat, x0, yty = variant_case(shape, variant, device)
             tol = TOL[variant]
             tag = f"{name} {variant} C={C} L={L} F={F}"
             if name in solves:
@@ -192,7 +221,14 @@ def phase_kernels(device):
                 res = check_against(tag, got, ref(), ref(2), tol, "cg_steps=2")
                 if not torch.equal(got[1], x0[1]):
                     raise AssertionError(f"{tag}: all-padding row moved")
-                reps = 20 if name == "cg_full" else 5
+                if name == "gramian_cg":
+                    if variant == "f32":
+                        res["tf32_ref_err"] = tf32_check(tag, got, ref)
+                    again = run()
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{tag}: two runs on the same inputs differ")
+                reps = 20 if name == "cg_full" else 10
             else:
                 w, bv = _weights(dat)
                 w_short, bv_short = drop_last_entry(w, bv)
@@ -213,10 +249,12 @@ def phase_kernels(device):
                 reps = 20
             res["ms"] = cuda_ms(run, reps)
             res["plain_ms"] = cuda_ms(ref, reps)
+            tf32 = (f"; the TF32 plain version is {res['tf32_ref_err']:.3e} off"
+                    if "tf32_ref_err" in res else "")
             say(2, f"{tag}: max_abs_err={res['max_abs_err']:.3e} (bar rtol=atol={tol}: "
-                   f"{res['bar']:.3e}; against the wrong reference: {res['wrong_ref_err']:.3e}) "
-                   f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms")
-            results[name][variant] = res
+                   f"{res['bar']:.3e}; against the wrong reference: {res['wrong_ref_err']:.3e}"
+                   f"{tf32}) kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms")
+            results[name].setdefault(which, {})[variant] = res
             del Y, scales, idx, dat, x0, yty, got, run, ref
             torch.cuda.empty_cache()
     return results
@@ -429,16 +467,21 @@ def kernel_rows(kernels, launches):
     variant's own numbers."""
     rows = []
     for name, spec in KERNELS.items():
-        res = kernels[name]
+        res = kernels[name]["shape"]
         variants = {v: dict(launches=launches[f"{name}_{v}"], **res[v]) for v in VARIANTS}
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"],
             "launches": sum(r["launches"] for r in variants.values()),
             "max_abs_err": max(r["max_abs_err"] for r in variants.values()),
             "ms": res["f32"]["ms"], "plain_ms": res["f32"]["plain_ms"],
             "shape_CLF": list(spec["shape"]), "variants": variants,
-        })
+        }
+        if "head_shape" in spec:
+            head = kernels[name]["head_shape"]
+            row["max_abs_err"] = max(row["max_abs_err"], *(r["max_abs_err"] for r in head.values()))
+            row["head_class"] = {"shape_CLF": list(spec["head_shape"]), "variants": head}
+        rows.append(row)
     return rows
 
 

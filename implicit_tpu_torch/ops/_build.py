@@ -40,8 +40,11 @@ def _variants(name, args):
 SIGNATURES = {
     # (table, idx, dat, x0, yty, out, C, L, F, cg_steps, stream)
     "cg_full": _variants("cg_full", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    # (table, idx, dat, x0, yty, A, b, out, C, L, F, cg_steps, stream)
-    "gramian_cg": _variants("gramian_cg", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # (table, idx, dat, x0, yty, A, b, part, out, C, L, F, cg_steps, stream), and
+    # the partial scratch's slice count (C, L, F)
+    "gramian_cg": {**_variants("gramian_cg",
+                               [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                   "gramian_cg_slices": [_I, _I, _I]},
     # (table, idx, w, bv, v, out, C, L, F, alpha, beta, stream)
     "weighted_matvec": _variants("weighted_matvec",
                                  [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P]),

@@ -104,14 +104,79 @@ def normal_equations(Y, idx, dat, YtY_reg, scales=None):
     return A, torch.einsum("cl,clf->cf", bv, Yu)
 
 
-def gramian_cg_solve_plain(Y, idx, dat, x0, YtY_reg, cg_steps=3, scales=None):
-    """Plain PyTorch version of :func:`gramian_cg_solve` (same arguments)."""
+def _explicit_cg(A, b, x0, cg_steps):
+    """The masked CG on explicit per-row normal matrices A (C, F, F)."""
     from .als import _masked_cg
 
-    A, b = normal_equations(Y, idx, dat, YtY_reg, scales)
     x0 = x0.to(A.dtype)
     r = b - torch.einsum("cfg,cg->cf", A, x0)
     return _masked_cg(x0, r, lambda v: torch.einsum("cfg,cg->cf", A, v), cg_steps)
+
+
+def gramian_cg_solve_plain(Y, idx, dat, x0, YtY_reg, cg_steps=3, scales=None):
+    """Plain PyTorch version of :func:`gramian_cg_solve` (same arguments)."""
+    A, b = normal_equations(Y, idx, dat, YtY_reg, scales)
+    return _explicit_cg(A, b, x0, cg_steps)
+
+
+# A model of the CUDA gramian build's operand precision, for the tests only:
+# the kernel runs A += (w y)^T y on tensor cores, whose operands are TF32 or
+# bfloat16. It cannot run on the CPU, so these functions round the operands
+# as it does (by masking float32 bits) and let a CPU test show how far each
+# scheme's solve lands from the float32 one. The float32 table takes 3xTF32,
+# bfloat16 and int8 tables "bf16x2"; "tf32" and "bf16" are the single-pass
+# schemes the kernel does not use.
+SPLIT_SCHEMES = ("3xtf32", "tf32", "bf16x2", "bf16")
+
+
+def round_tf32(x):
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32``; returned as float32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def round_bf16(x):
+    """float32 ``x`` rounded to bfloat16 (7 mantissa bits), to nearest with
+    ties to even, as ``__float2bfloat16_rn``; returned as float32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x7FFF + ((bits >> 16) & 1)) & -0x10000).view(torch.float32)
+
+
+def _split_terms(a, y, scheme):
+    """The (A operand, B operand) pairs whose products the scheme sums for
+    a = w y and y (float32): hi + lo splits for "3xtf32" and "bf16x2", the
+    lo * lo term dropped."""
+    if scheme == "3xtf32":
+        a_hi, y_hi = round_tf32(a), round_tf32(y)
+        return [(round_tf32(a - a_hi), y_hi), (a_hi, round_tf32(y - y_hi)), (a_hi, y_hi)]
+    if scheme == "tf32":
+        return [(round_tf32(a), round_tf32(y))]
+    y = round_bf16(y)  # exact for bfloat16 and dequantized int8 tables
+    if scheme == "bf16x2":
+        a_hi = round_bf16(a)
+        return [(round_bf16(a - a_hi), y), (a_hi, y)]
+    if scheme == "bf16":
+        return [(round_bf16(a), y)]
+    raise ValueError(f"scheme must be one of {SPLIT_SCHEMES}, got {scheme!r}")
+
+
+def normal_equations_split(Y, idx, dat, YtY_reg, scheme, scales=None):
+    """:func:`normal_equations` with A's products taken at the operand
+    precision of ``scheme`` (float32 sums); b as in the kernel, in float32."""
+    from .als import _weights
+
+    Yu = _gather(Y, idx, scales).float()
+    w, bv = _weights(dat.float())
+    terms = _split_terms(Yu * w[..., None], Yu, scheme)
+    A = YtY_reg.float() + sum(torch.einsum("clf,clg->cfg", p, q) for p, q in terms)
+    return A, torch.einsum("cl,clf->cf", bv, Yu)
+
+
+def gramian_cg_solve_split(Y, idx, dat, x0, YtY_reg, scheme, cg_steps=3, scales=None):
+    """:func:`gramian_cg_solve_plain` on :func:`normal_equations_split`."""
+    A, b = normal_equations_split(Y, idx, dat, YtY_reg, scheme, scales)
+    return _explicit_cg(A, b, x0, cg_steps)
 
 
 def _check_args(Y, idx, scales, **operands):
@@ -199,17 +264,24 @@ def cg_solve_full(Y, idx, dat, x0, YtY_reg, cg_steps=3, scales=None):
 def gramian_cg_solve(Y, idx, dat, x0, YtY_reg, cg_steps=3, scales=None):
     """Long-row solve of one chunk: explicit A + masked CG; (C, F) float32.
 
-    CUDA tensors launch ``csrc/gramian_cg.cu`` (with a (C, F, F) + (C, F)
-    float32 scratch allocated here); CPU tensors take the plain version.
+    CUDA tensors launch ``csrc/gramian_cg.cu`` with float32 scratch allocated
+    here: A (C, F, F) and b (C, F), and where the build splits each row over
+    S > 1 L-slices, their partial sums (C, S, F, F) + (C, S, F). CPU tensors
+    take the plain version.
     """
     if Y.device.type == "cpu":
         return gramian_cg_solve_plain(Y, idx, dat, x0, YtY_reg, cg_steps, scales)
     C, L, F = _check_args(Y, idx, scales, dat=dat, x0=x0, YtY_reg=YtY_reg)
+    lib = _build.load("gramian_cg")["gramian_cg"]
+    with torch.cuda.device(Y.device):  # the slice count depends on the device's SMs
+        slices = lib.gramian_cg_slices(C, L, F)
     out = torch.empty_like(x0)
     A = torch.empty((C, F, F), dtype=torch.float32, device=Y.device)
     b = torch.empty((C, F), dtype=torch.float32, device=Y.device)
+    part = (torch.empty(C * slices * (F * F + F), dtype=torch.float32, device=Y.device)
+            if slices > 1 else None)
     _launch("gramian_cg", Y, idx, scales,
-            (dat, x0, YtY_reg, A, b, out, C, L, F, int(cg_steps)))
+            (dat, x0, YtY_reg, A, b, part, out, C, L, F, int(cg_steps)))
     return out
 
 

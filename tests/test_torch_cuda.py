@@ -85,6 +85,94 @@ def test_int8_kernel_matches_plain(cuda, name, F, compute):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-4)
 
 
+def _table(Y, variant):
+    """The float32 table ``Y`` as the variant takes it: (table, scales)."""
+    if variant == "bf16":
+        return Y.to(torch.bfloat16), None
+    if variant == "i8":
+        return _quantize_table(Y, "bfloat16")
+    return Y, None
+
+
+def _gramian_slices(C, L, F):
+    from implicit_tpu_torch.ops import _build
+
+    return _build.load("gramian_cg")["gramian_cg"].gramian_cg_slices(C, L, F)
+
+
+# F = 10: an int8 row of 10 bytes is no whole number of 4-byte copies, so the
+# build stages it with plain loads instead of cp.async
+@pytest.mark.parametrize("variant", ["f32", "bf16", "i8"])
+@pytest.mark.parametrize("F", [8, 10, 100, 128, 200, 256])
+def test_gramian_split_rows_match_plain(cuda, F, variant):
+    C, L = 3, 20000  # each row split over many L-slices, summed in order
+    assert _gramian_slices(C, L, F) > 1
+    Y, idx, dat, x0, yty = _case(C, L, F, seed=F + 3, device=cuda, dtype=torch.float32,
+                                 n_table=5000)
+    Y, scales = _table(Y, variant)
+    before = cg_kernels.LAUNCHES[f"gramian_cg_{variant}"]
+    got = cg_kernels.gramian_cg_solve(Y, idx, dat, x0, yty, cg_steps=3, scales=scales)
+    torch.cuda.synchronize()
+    assert cg_kernels.LAUNCHES[f"gramian_cg_{variant}"] == before + 1
+    want = cg_kernels.gramian_cg_solve_plain(Y, idx, dat, x0, yty, cg_steps=3, scales=scales)
+    tol = 2e-3 if variant == "bf16" else 1e-4
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("C,L", [(64, 4096), (8, 65536)])
+def test_gramian_f32_is_not_tf32(cuda, C, L):
+    # single-pass TF32 would pass the 1e-4 bar; the float32 build (3xTF32)
+    # must land at least 10x closer to the float32 plain version than the
+    # plain version computed in TF32 does
+    Y, idx, dat, x0, yty = _case(C, L, 128, seed=C, device=cuda, dtype=torch.float32,
+                                 n_table=20000)
+    got = cg_kernels.gramian_cg_solve(Y, idx, dat, x0, yty, cg_steps=3)
+    want = cg_kernels.gramian_cg_solve_plain(Y, idx, dat, x0, yty, cg_steps=3)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = cg_kernels.gramian_cg_solve_plain(Y, idx, dat, x0, yty, cg_steps=3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    err = float((got - want).abs().max())
+    tf32_err = float((tf32 - want).abs().max())
+    assert tf32_err > 0
+    assert err <= 0.1 * tf32_err, (err, tf32_err)
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16", "i8"])
+def test_gramian_is_deterministic(cuda, variant):
+    Y, idx, dat, x0, yty = _case(4, 20000, 128, seed=5, device=cuda, dtype=torch.float32,
+                                 n_table=5000)
+    Y, scales = _table(Y, variant)
+    runs = [cg_kernels.gramian_cg_solve(Y, idx, dat, x0, yty, cg_steps=3, scales=scales)
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16", "i8"])
+def test_gramian_padding_skip(cuda, variant):
+    """Rows with all-zero entry groups before, between and after live ones,
+    and an all-padding row, against the plain version (which sums them)."""
+    C, L, F = 6, 8192, 128
+    Y, idx, dat, x0, yty = _case(C, L, F, seed=11, device=cuda, dtype=torch.float32,
+                                 n_table=5000)
+    dat = torch.abs(dat) + 1.0
+    dat[0, :4000] = 0.0             # live entries only after 125 empty groups
+    dat[1, 64:4096] = 0.0           # an empty stretch between live groups
+    dat[2, :] = 0.0                 # all padding, from x0 = 0: stays at 0
+    x0[2] = 0.0
+    dat[3, :8100] = 0.0
+    dat[3, 8191] = 2.0              # one live entry, in the last group
+    dat[4, 33::64] = 0.0            # isolated zeros inside live groups
+    Y, scales = _table(Y, variant)
+    got = cg_kernels.gramian_cg_solve(Y, idx, dat, x0, yty, cg_steps=3, scales=scales)
+    want = cg_kernels.gramian_cg_solve_plain(Y, idx, dat, x0, yty, cg_steps=3, scales=scales)
+    assert torch.equal(got[2], x0[2])
+    tol = 2e-3 if variant == "bf16" else 1e-4
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("alpha,beta", [(1.0, -1.0), (0.0, 1.0)])
 @pytest.mark.parametrize("variant", ["f32", "bf16", "i8"])
 @pytest.mark.parametrize("F", [8, 32, 100, 128, 256])
