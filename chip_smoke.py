@@ -10,15 +10,20 @@ Phases, each printing its own lines; any failure exits non-zero:
 0. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
    no CUDA device is a failure;
 1. build the CUDA kernels from ``implicit_tpu_torch/ops/csrc`` (nvcc, one
-   process per library, all at once);
+   process per library, all at once, always from the sources), and print
+   ptxas's registers and spills of every ``cg_full`` instantiation, which
+   must not spill;
 2. each kernel against its plain PyTorch version on the card, in float32,
    bfloat16 and int8 (per-row scales), at the fit's own class shapes, with
-   times; the same bar must reject a deliberately wrong plain version (one
-   CG step short; for weighted_matvec each row's last entry dropped).
-   ``gramian_cg`` also runs at the fit's head-class shape, where each row
-   is split over many blocks, must give the same bits twice, and in
-   float32 must land 10x closer to the plain version than the plain
-   version run in TF32;
+   times and the least time the card could take (``bound``); the same bar
+   must reject a deliberately wrong plain version (one CG step short; for
+   weighted_matvec each row's last entry dropped), and the solves must give
+   the same bits twice. ``cg_full`` also runs at the f=256 fit's short
+   class (bf16, int8) and on ``cg_kernels.freeze_case`` (rows freezing at
+   different CG steps in one block; each frozen row must keep its x bit
+   for bit). ``gramian_cg`` also runs at the fit's head-class shape, where
+   each row is split over many blocks, and in float32 must land 10x closer
+   to the plain version than the plain version run in TF32;
 3. the main paths, each with the launch counters set to 0 just before it
    and read just after, which must show every routed chunk:
    ``AlternatingLeastSquares.fit`` at the last.fm-360k shape (360k users x
@@ -56,23 +61,46 @@ CORPUS = os.path.join(ROOT, "implicit_tpu", "datasets", "_data", "stdlib_corpus.
 TOL = {"f32": 1e-4, "bf16": 2e-3, "i8": 1e-4}
 VARIANTS = ("f32", "bf16", "i8")
 
+# each kernel's phase-2 cases: {case: ((C, L, F), variants)}; "shape" is the
+# one whose float32 times and bound stand in the kernels line
 KERNELS = {
     "cg_full": dict(
         source="implicit_tpu_torch/ops/csrc/cg_full.cu",
         replaces="implicit_tpu/ops/pallas_ops.py:173",
-        shape=(4096, 64, 128)),  # (C, L, F): a short-row class of the fit
+        cases={
+            "shape": ((4096, 64, 128), VARIANTS),  # a short-row class of the f=128 fit
+            # the f=256 fit's short class, in the table types that fit runs
+            "f256_shape": ((4096, 64, 256), ("bf16", "i8")),
+            # cg_kernels.freeze_case: rows freezing at different CG steps side
+            # by side in the lockstep blocks; C no multiple of 8
+            "freeze_case": ((4101, 64, 128), VARIANTS),
+        }),
     "gramian_cg": dict(
         source="implicit_tpu_torch/ops/csrc/gramian_cg.cu",
         replaces="implicit_tpu/ops/pallas_ops.py:292",
-        shape=(256, 8192, 128),  # a long-row (head item) class: the yardstick
-        # the fit's head class at f=128 (L=65536, C=8): few rows, each split
-        # over many L-slices
-        head_shape=(8, 65536, 128)),
+        cases={
+            "shape": ((256, 8192, 128), VARIANTS),  # a long-row (head item) class
+            # the fit's head class at f=128 (L=65536, C=8): few rows, each
+            # split over many L-slices
+            "head_class": ((8, 65536, 128), VARIANTS),
+        }),
     "weighted_matvec": dict(
         source="implicit_tpu_torch/ops/csrc/weighted_matvec.cu",
         replaces="implicit_tpu/ops/pallas_ops.py:46",
-        shape=(1024, 600, 128)),  # L not a multiple of 32
+        cases={"shape": ((1024, 600, 128), VARIANTS)}),  # L not a multiple of 32
 }
+
+# the card's peaks for bound_ms (H100 SXM data sheet, dense, at 700 W): HBM,
+# float32 on the CUDA cores, and the tensor cores in TF32 and bfloat16
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
+
+# launches per phase-2 timing: a mean over 10 moved by up to 3% with the
+# work run just before it, one over hundreds by under 0.5%
+# (scripts/phase2_context.py)
+REPS = 100
 
 
 def say(phase, msg):
@@ -124,21 +152,40 @@ def kernel_case(C, L, F, dtype, seed, device):
     return t(Y).to(dtype), t(idx), t(dat), t(x0), t(yty)
 
 
-def variant_case(shape, variant, device):
-    """``kernel_case`` at ``shape``, with the table as the variant has it:
-    float32, bfloat16, or int8 + scales quantized from it."""
+def as_variant(Y, variant):
+    """The float32 table as the variant has it: (table, scales or None)."""
     import torch
 
     from implicit_tpu_torch.ops.als import _quantize_table
 
-    C, L, F = shape
-    Y, idx, dat, x0, yty = kernel_case(C, L, F, torch.float32, seed=C + L, device=device)
-    scales = None
     if variant == "bf16":
-        Y = Y.to(torch.bfloat16)
-    elif variant == "i8":
-        Y, scales = _quantize_table(Y, "bfloat16")
-    return Y, scales, idx, dat, x0, yty
+        return Y.to(torch.bfloat16), None
+    if variant == "i8":
+        return _quantize_table(Y, "bfloat16")
+    return Y, None
+
+
+def variant_case(shape, variant, device, freeze=False):
+    """``kernel_case`` at ``shape`` (or ``cg_kernels.freeze_case`` with x0 in
+    the span of the rows the variant reads), with the table as the variant
+    has it: float32, bfloat16, or int8 + scales quantized from it. Returns
+    (Y, scales, idx, dat, x0, yty, steps); steps is None but for freeze."""
+    import torch
+
+    from implicit_tpu_torch.ops import cg_kernels
+
+    C, L, F = shape
+    if not freeze:
+        Y, idx, dat, x0, yty = kernel_case(C, L, F, torch.float32, seed=C + L, device=device)
+        return (*as_variant(Y, variant), idx, dat, x0, yty, None)
+
+    def seen(Y):
+        q, s = as_variant(torch.as_tensor(Y), variant)
+        return (q.float() if s is None else cg_kernels.dequantize_rows(q, s).float()).numpy()
+
+    *arrays, steps = cg_kernels.freeze_case(C, L, F, seed=C, seen=seen)
+    Y, idx, dat, x0, yty = (torch.as_tensor(a, device=device) for a in arrays)
+    return (*as_variant(Y, variant), idx, dat, x0, yty, steps)
 
 
 def drop_last_entry(w, bv):
@@ -194,6 +241,56 @@ def tf32_check(tag, got, ref):
     return tf32_err
 
 
+def solve_passes(plain, Y, scales, idx, dat, x0, yty, cg_steps=3):
+    """Passes over each row's entries that the solve needs (the residual and
+    each CG step the row is still active for), from the plain version: a
+    row active at step s moves its x there."""
+    import torch
+
+    xs = [plain(Y, idx, dat, x0, yty, cg_steps=s, scales=scales) for s in range(cg_steps + 1)]
+    moved = [(xs[s] != xs[s - 1]).any(1) for s in range(1, cg_steps + 1)]
+    return 1 + torch.stack(moved, 1).sum(1)
+
+
+def bound(name, Y, scales, idx, dat, passes=None):
+    """(bound_ms, bound_by, flops, bytes) of one call on these inputs: the
+    larger of its bytes (each table row a live entry reads, once; idx and
+    the entry weights; the (C, F) vectors in and out; YtY_reg) over the
+    card's memory rate and its flops over the peak of the unit and type
+    they need. On the CUDA cores in float32: per pass a row costs 2 F^2 (the
+    dense term) + 4 F per live entry (y . v, then coeff * y); the gramian's
+    b 2 F per live entry and its CG 2 F^2 per pass; weighted_matvec's A p
+    pass 4 F per live entry. The gramian build's symmetric A is F (F + 1)
+    per live entry (the upper triangle), a product over the entry axis for
+    the tensor cores: in bfloat16 for bf16 and int8 tables, and for float32
+    tables in 3xTF32 (a third of the TF32 peak), the fastest way to float32
+    accuracy there (phase 2 rejects a single TF32 pass). The build must end
+    before the CG starts, so the two times add."""
+    C, L = idx.shape
+    F = Y.shape[1]
+    live = (dat != 0).sum(1).double()
+    rows = int(idx[dat != 0].unique().numel())
+    row_bytes = F * Y.element_size() + (4 if scales is not None else 0)
+    weights = 12 if name == "weighted_matvec" else 8  # idx + dat, or idx + w + bv
+    nbytes = rows * row_bytes + C * L * weights + 2 * C * F * 4
+    mma_flops = 0.0  # on the tensor cores
+    if name == "weighted_matvec":
+        flops = float(4 * F * live.sum())
+    else:
+        nbytes += F * F * 4
+        passes = passes.double()
+        if name == "cg_full":
+            flops = float((passes * (2 * F * F + 4 * F * live)).sum())
+        else:
+            flops = float((2 * F * live + passes * 2 * F * F).sum())
+            mma_flops = float(F * (F + 1) * live.sum())
+    mma_peak = PEAK_TF32_FLOPS / 3 if Y.element_size() == 4 else PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_flops = flops / PEAK_F32_FLOPS + mma_flops / mma_peak
+    by = "bytes" if t_bytes >= t_flops else "operations"
+    return 1e3 * max(t_bytes, t_flops), by, flops + mma_flops, nbytes
+
+
 def phase_kernels(device):
     import torch
 
@@ -203,60 +300,76 @@ def phase_kernels(device):
     solves = {"cg_full": (cg_kernels.cg_solve_full, cg_kernels.cg_solve_full_plain),
               "gramian_cg": (cg_kernels.gramian_cg_solve, cg_kernels.gramian_cg_solve_plain)}
     results = {name: {} for name in KERNELS}
-    cases = [(name, "shape") for name in KERNELS] + [("gramian_cg", "head_shape")]
-    for name, which in cases:
-        C, L, F = shape = KERNELS[name][which]
-        for variant in VARIANTS:
-            Y, scales, idx, dat, x0, yty = variant_case(shape, variant, device)
-            tol = TOL[variant]
-            tag = f"{name} {variant} C={C} L={L} F={F}"
-            if name in solves:
-                kernel, plain = solves[name]
-                run = lambda: kernel(Y, idx, dat, x0, yty, cg_steps=3, scales=scales)  # noqa: E731
-                ref = lambda steps=3: plain(  # noqa: E731
-                    Y, idx, dat, x0, yty, cg_steps=steps, scales=scales)
-                got = run()
-                # a deliberately wrong reference (one CG step short): the
-                # bar must reject it, or it could not catch a real slip either
-                res = check_against(tag, got, ref(), ref(2), tol, "cg_steps=2")
-                if not torch.equal(got[1], x0[1]):
-                    raise AssertionError(f"{tag}: all-padding row moved")
-                if name == "gramian_cg":
-                    if variant == "f32":
+    for name, spec in KERNELS.items():
+        for which, (shape, variants) in spec["cases"].items():
+            C, L, F = shape
+            for variant in variants:
+                Y, scales, idx, dat, x0, yty, steps = variant_case(
+                    shape, variant, device, freeze=which == "freeze_case")
+                tol = TOL[variant]
+                tag = f"{name} {variant} C={C} L={L} F={F}" + (
+                    " freeze case" if steps is not None else "")
+                if name in solves:
+                    kernel, plain = solves[name]
+                    run = lambda steps=3: kernel(  # noqa: E731
+                        Y, idx, dat, x0, yty, cg_steps=steps, scales=scales)
+                    ref = lambda steps=3: plain(  # noqa: E731
+                        Y, idx, dat, x0, yty, cg_steps=steps, scales=scales)
+                    got = run()
+                    # a deliberately wrong reference (one CG step short): the
+                    # bar must reject it, or it could not catch a real slip either
+                    res = check_against(tag, got, ref(), ref(2), tol, "cg_steps=2")
+                    if not torch.equal(got[1], x0[1]):
+                        raise AssertionError(f"{tag}: all-padding row moved")
+                    if steps is not None:
+                        # a frozen row keeps the x of the step it froze at, bit for bit
+                        xs = [run(s) for s in range(3)] + [got]
+                        for s in range(4):
+                            rows = torch.as_tensor(steps == s, device=device)
+                            if not torch.equal(xs[s][rows], got[rows]):
+                                raise AssertionError(f"{tag}: a row frozen at step {s} moved")
+                        res["rows_by_freeze_step"] = np.bincount(steps + 1).tolist()
+                    if name == "gramian_cg" and variant == "f32":
                         res["tf32_ref_err"] = tf32_check(tag, got, ref)
                     again = run()
                     torch.cuda.synchronize()
                     if not torch.equal(got, again):
                         raise AssertionError(f"{tag}: two runs on the same inputs differ")
-                reps = 20 if name == "cg_full" else 10
-            else:
-                w, bv = _weights(dat)
-                w_short, bv_short = drop_last_entry(w, bv)
-                v = x0 * 10
-                for alpha, beta in ((1.0, -1.0), (0.0, 1.0)):
-                    got = cg_kernels.weighted_matvec(Y, idx, w, bv, v, alpha, beta, scales)
-                    want = cg_kernels.weighted_matvec_plain(Y, idx, w, bv, v, alpha, beta, scales)
-                    wrong = cg_kernels.weighted_matvec_plain(
-                        Y, idx, w_short, bv_short, v, alpha, beta, scales)
-                    r = check_against(f"{tag} (alpha, beta)=({alpha:g}, {beta:g})", got, want,
-                                      wrong, tol, "each row's last entry dropped")
-                    res = r if alpha == 1.0 else {k: max(res[k], r[k]) for k in r}
-                # timed on the A p pass, cg_steps of the cg_steps + 1 per solve
-                run = lambda: cg_kernels.weighted_matvec(  # noqa: E731
-                    Y, idx, w, bv, v, 0.0, 1.0, scales)
-                ref = lambda: cg_kernels.weighted_matvec_plain(  # noqa: E731
-                    Y, idx, w, bv, v, 0.0, 1.0, scales)
-                reps = 20
-            res["ms"] = cuda_ms(run, reps)
-            res["plain_ms"] = cuda_ms(ref, reps)
-            tf32 = (f"; the TF32 plain version is {res['tf32_ref_err']:.3e} off"
-                    if "tf32_ref_err" in res else "")
-            say(2, f"{tag}: max_abs_err={res['max_abs_err']:.3e} (bar rtol=atol={tol}: "
-                   f"{res['bar']:.3e}; against the wrong reference: {res['wrong_ref_err']:.3e}"
-                   f"{tf32}) kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms")
-            results[name].setdefault(which, {})[variant] = res
-            del Y, scales, idx, dat, x0, yty, got, run, ref
-            torch.cuda.empty_cache()
+                    passes = solve_passes(plain, Y, scales, idx, dat, x0, yty)
+                else:
+                    w, bv = _weights(dat)
+                    w_short, bv_short = drop_last_entry(w, bv)
+                    v = x0 * 10
+                    for alpha, beta in ((1.0, -1.0), (0.0, 1.0)):
+                        got = cg_kernels.weighted_matvec(Y, idx, w, bv, v, alpha, beta, scales)
+                        want = cg_kernels.weighted_matvec_plain(
+                            Y, idx, w, bv, v, alpha, beta, scales)
+                        wrong = cg_kernels.weighted_matvec_plain(
+                            Y, idx, w_short, bv_short, v, alpha, beta, scales)
+                        r = check_against(f"{tag} (alpha, beta)=({alpha:g}, {beta:g})", got,
+                                          want, wrong, tol, "each row's last entry dropped")
+                        res = r if alpha == 1.0 else {k: max(res[k], r[k]) for k in r}
+                    # timed on the A p pass, cg_steps of the cg_steps + 1 per solve
+                    run = lambda: cg_kernels.weighted_matvec(  # noqa: E731
+                        Y, idx, w, bv, v, 0.0, 1.0, scales)
+                    ref = lambda: cg_kernels.weighted_matvec_plain(  # noqa: E731
+                        Y, idx, w, bv, v, 0.0, 1.0, scales)
+                    passes = None
+                res["ms"] = cuda_ms(run, REPS)
+                res["plain_ms"] = cuda_ms(ref, REPS)
+                res["bound_ms"], res["bound_by"], flops, nbytes = bound(
+                    name, Y, scales, idx, dat, passes)
+                tf32 = (f"; the TF32 plain version is {res['tf32_ref_err']:.3e} off"
+                        if "tf32_ref_err" in res else "")
+                say(2, f"{tag}: max_abs_err={res['max_abs_err']:.3e} (bar rtol=atol={tol}: "
+                       f"{res['bar']:.3e}; against the wrong reference: "
+                       f"{res['wrong_ref_err']:.3e}{tf32}) kernel {res['ms']:.4f} ms, plain "
+                       f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms by "
+                       f"{res['bound_by']} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB), "
+                       f"{100 * res['bound_ms'] / res['ms']:.1f}% of it")
+                results[name].setdefault(which, {})[variant] = res
+                del Y, scales, idx, dat, x0, yty, got, run, ref
+                torch.cuda.empty_cache()
     return results
 
 
@@ -463,26 +576,55 @@ def phase_quality(device, **kwargs):
 
 def kernel_rows(kernels, launches):
     """One row per kernel for the ``{"kernels": [...]}`` line: the main paths'
-    launches (all variants), the largest error, the float32 times, and each
-    variant's own numbers."""
+    launches (all variants), the largest error over every case, the float32
+    times and bound at the kernel's "shape" case, and each case's numbers by
+    variant. No single PyTorch call computes any of these functions (whole
+    per-row CG solves; two dependent contractions), so library_ms is null."""
     rows = []
     for name, spec in KERNELS.items():
         res = kernels[name]["shape"]
         variants = {v: dict(launches=launches[f"{name}_{v}"], **res[v]) for v in VARIANTS}
+        f32 = res["f32"]
         row = {
             "name": name, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"],
             "launches": sum(r["launches"] for r in variants.values()),
-            "max_abs_err": max(r["max_abs_err"] for r in variants.values()),
-            "ms": res["f32"]["ms"], "plain_ms": res["f32"]["plain_ms"],
-            "shape_CLF": list(spec["shape"]), "variants": variants,
+            "max_abs_err": max(r["max_abs_err"] for case in kernels[name].values()
+                               for r in case.values()),
+            "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+            "bound_by": f32["bound_by"], "library_ms": None,
+            "shape_CLF": list(spec["cases"]["shape"][0]), "variants": variants,
         }
-        if "head_shape" in spec:
-            head = kernels[name]["head_shape"]
-            row["max_abs_err"] = max(row["max_abs_err"], *(r["max_abs_err"] for r in head.values()))
-            row["head_class"] = {"shape_CLF": list(spec["head_shape"]), "variants": head}
+        for which, (shape, _) in spec["cases"].items():
+            if which != "shape":
+                row[which] = {"shape_CLF": list(shape), "variants": kernels[name][which]}
         rows.append(row)
     return rows
+
+
+def ptxas_report(log, kernel="cg_full_kernel"):
+    """(instantiation, registers, spill stores, spill loads) per compiled
+    instantiation of ``kernel``, from nvcc's ``-Xptxas -v`` output."""
+    import re
+
+    tables = (("QuantRows", "i8"), ("bfloat16", "bf16"), ("TableRowsIf", "f32"))
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            table = next(t for key, t in tables if key in name)
+            args = re.findall(r"Li(\d+)E", name)  # VPT, then the load width W
+            out.append((f"{table} VPT={args[0]} W={args[1]}", int(m.group(1)), *spills))
+            name = None
+    return out
 
 
 def main():
@@ -498,9 +640,17 @@ def main():
     from implicit_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    for name in _build.SIGNATURES:  # build from the checkout's sources, every run
+        if os.path.exists(_build.library_path(name)):
+            os.unlink(_build.library_path(name))
     _build.load()
     say(1, f"kernels built+loaded in {time.perf_counter() - t0:.1f} s "
            f"(nvcc per library, s: {json.dumps(_build.BUILD_SECONDS)})")
+    report = ptxas_report(_build.BUILD_LOGS["cg_full"])
+    say(1, "cg_full ptxas (registers, spill stores/loads bytes): " + "; ".join(
+        f"{inst}: {regs} regs, {st}/{ld}" for inst, regs, st, ld in report))
+    if not report or any(st or ld for _, _, st, ld in report):
+        raise AssertionError("cg_full: no ptxas report, or a variant spills")
 
     kernels = phase_kernels(device)
     launches = phase_main_path(device)

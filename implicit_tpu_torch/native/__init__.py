@@ -1,10 +1,11 @@
 """ctypes binding for the host packer (``pack_ragged``).
 
-The C++ source is the JAX package's ``implicit_tpu/native/packer.cpp``, read
-by path (that package imports jax, so it is never imported from here). It is
-built with g++ on first use into ``implicit_tpu_torch/build/`` under a name
-that carries the source's hash. Without a compiler, or without the source,
-the numpy path packs the same arrays: this is host code, not a device kernel.
+The C++ source is the port's own ``native/packer.cpp`` (the ``pack_ragged``
+routine of the JAX package's packer, copied so that the port reads nothing
+of that package). It is built with g++ on first use into
+``implicit_tpu_torch/build/`` under a name that carries the source's hash.
+Without a compiler, or without the source, the numpy path packs the same
+arrays: this is host code, not a device kernel.
 """
 
 import ctypes
@@ -19,7 +20,7 @@ import numpy as np
 log = logging.getLogger("implicit_tpu_torch")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG), "implicit_tpu", "native", "packer.cpp")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "packer.cpp")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 _lib = None

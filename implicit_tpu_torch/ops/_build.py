@@ -22,6 +22,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_OPS), "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills per kernel, in BUILD_LOGS
 ]
 
 _P = ctypes.c_void_p
@@ -52,6 +53,7 @@ SIGNATURES = {
 
 _libs = {}
 BUILD_SECONDS = {}
+BUILD_LOGS = {}  # nvcc's output per library built by this process
 
 
 def nvcc_path():
@@ -99,6 +101,7 @@ def _finish_build(name, out, proc, tmp, cmd, t0):
         if os.path.exists(tmp):
             os.unlink(tmp)
     BUILD_SECONDS[name] = time.perf_counter() - t0
+    BUILD_LOGS[name] = log.decode(errors="replace")
 
 
 def load(*names):

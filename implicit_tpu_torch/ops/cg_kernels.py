@@ -27,6 +27,7 @@ kernels.
 kernels do not bounds-check it.
 """
 
+import numpy as np
 import torch
 
 from . import _build
@@ -177,6 +178,48 @@ def gramian_cg_solve_split(Y, idx, dat, x0, YtY_reg, scheme, cg_steps=3, scales=
     """:func:`gramian_cg_solve_plain` on :func:`normal_equations_split`."""
     A, b = normal_equations_split(Y, idx, dat, YtY_reg, scheme, scales)
     return _explicit_cg(A, b, x0, cg_steps)
+
+
+def freeze_case(C, L, F, seed, n_table=4096, seen=None):
+    """Inputs of one chunk whose rows freeze at different CG steps, as numpy
+    arrays ``(Y, idx, dat, x0, YtY_reg, steps)``: the check of the lockstep
+    masking in ``cg_full`` (tests and ``chip_smoke.py``).
+
+    YtY_reg is 0.5 I. Row kinds, by row number: general rows (random entries
+    and padding tails; they never freeze); rows whose entries are all
+    negative (b = 0) from x0 = 0, already at their solution; and rows of
+    k = 1, 2, 3 negative entries from an x0 that is 1e-5 away from 0 inside
+    the span of their k table rows, so that the CG converges in k steps and
+    the squared residual falls below 1e-20 there. ``steps[c]`` is the step
+    after which row c freezes (0: at the start; -1: never). Row 1 is all
+    padding from x0 = 0, and the last 24 rows freeze by step 2, so that whole
+    blocks of rows freeze before the last step. ``seen`` maps the float32
+    table to the values the solve reads (bfloat16 rounding, int8
+    dequantization), so that x0 lies in the span of those rows.
+    """
+    rng = np.random.default_rng(seed)
+    Y = rng.standard_normal((n_table, F), dtype=np.float32) * 0.1
+    idx = rng.integers(0, n_table, size=(C, L), dtype=np.int32)
+    dat = rng.random((C, L), dtype=np.float32) * 5 + 1
+    x0 = rng.standard_normal((C, F), dtype=np.float32) * 0.01
+    lengths = rng.integers(1, L + 1, size=C)
+    kind = np.arange(C) % 5  # 0 general, 1 at its solution, 2-4: 1-3 entries
+    kind[-24:] = 1 + np.arange(min(C, 24)) % 3
+    steps = np.where(kind == 0, -1, kind - 1)
+    rows = Y if seen is None else np.asarray(seen(Y), dtype=np.float32)
+    for c in np.nonzero(kind)[0]:
+        n = lengths[c] if kind[c] == 1 else kind[c] - 1
+        dat[c] = 0.0
+        dat[c, :n] = -(rng.random(n, dtype=np.float32) * 3 + 2)  # w = 1..4, bv = 0
+        x0[c] = 0.0
+        if kind[c] > 1:
+            x0[c] = (rng.standard_normal(n).astype(np.float32) * 1e-5) @ rows[idx[c, :n]]
+    general = kind == 0
+    dat[general[:, None] & (np.arange(L)[None, :] >= lengths[:, None])] = 0.0
+    dat[1], x0[1], steps[1] = 0.0, 0.0, 0
+    idx[dat == 0] = 0
+    yty = 0.5 * np.eye(F, dtype=np.float32)
+    return Y, idx, dat, x0, yty, steps
 
 
 def _check_args(Y, idx, scales, **operands):

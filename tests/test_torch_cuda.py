@@ -52,8 +52,11 @@ KERNELS = {
 }
 
 
+# F = 10: an int8 row of 10 bytes is no whole number of 4-byte words, so
+# cg_full loads it element by element; F = 136: 8 values per lane, the last
+# lanes' chunks past F
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("F", [8, 32, 64, 100, 128, 200, 256])
+@pytest.mark.parametrize("F", [8, 10, 32, 64, 100, 128, 136, 200, 256])
 @pytest.mark.parametrize("name", sorted(KERNELS))
 def test_kernel_matches_plain(cuda, name, F, dtype):
     kernel, plain = KERNELS[name]
@@ -70,7 +73,7 @@ def test_kernel_matches_plain(cuda, name, F, dtype):
 
 
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
-@pytest.mark.parametrize("F", [8, 32, 64, 100, 128, 200, 256])
+@pytest.mark.parametrize("F", [8, 10, 32, 64, 100, 128, 136, 200, 256])
 @pytest.mark.parametrize("name", sorted(KERNELS))
 def test_int8_kernel_matches_plain(cuda, name, F, compute):
     kernel, plain = KERNELS[name]
@@ -92,6 +95,46 @@ def _table(Y, variant):
     if variant == "i8":
         return _quantize_table(Y, "bfloat16")
     return Y, None
+
+
+def _seen_rows(variant):
+    """What the variant's solve reads of a float32 table, as numpy: for
+    ``freeze_case``'s ``seen``."""
+    def seen(Y):
+        q, s = _table(torch.as_tensor(Y), variant)
+        return (q.float() if s is None else cg_kernels.dequantize_rows(q, s).float()).numpy()
+    return seen
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16", "i8"])
+@pytest.mark.parametrize("F", [10, 128, 256])
+def test_cg_full_freezing_rows_match_plain(cuda, F, variant):
+    """Rows that freeze at different CG steps solved in lockstep blocks: each
+    frozen row keeps its x from the step it froze at (bit for bit), and the
+    chunk matches the plain version; C = 45 is no multiple of the block's rows."""
+    Y, idx, dat, x0, yty, steps = cg_kernels.freeze_case(45, 32, F, seed=F,
+                                                         seen=_seen_rows(variant))
+    Y, idx, dat, x0, yty = (torch.as_tensor(a, device=cuda) for a in (Y, idx, dat, x0, yty))
+    Y, scales = _table(Y, variant)
+    xs = [cg_kernels.cg_solve_full(Y, idx, dat, x0, yty, cg_steps=s, scales=scales).cpu()
+          for s in range(4)]
+    want = cg_kernels.cg_solve_full_plain(Y, idx, dat, x0, yty, cg_steps=3, scales=scales)
+    tol = 2e-3 if variant == "bf16" else 1e-4
+    np.testing.assert_allclose(xs[3].numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+    for c, s in enumerate(steps):
+        if s >= 0:
+            assert torch.equal(xs[s][c], xs[3][c]), (c, s)
+    assert torch.equal(xs[3][steps == 0], x0.cpu()[steps == 0])
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16", "i8"])
+@pytest.mark.parametrize("F", [128, 256])
+def test_cg_full_is_deterministic(cuda, F, variant):
+    Y, idx, dat, x0, yty = _case(301, 200, F, seed=F + 7, device=cuda, dtype=torch.float32)
+    Y, scales = _table(Y, variant)
+    runs = [cg_kernels.cg_solve_full(Y, idx, dat, x0, yty, cg_steps=3, scales=scales)
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
 
 
 def _gramian_slices(C, L, F):

@@ -75,6 +75,42 @@ def test_cg_solve_full_matches_pallas(shape, bf16):
     assert not got[1].any()  # the all-padding row stayed at x0 = 0
 
 
+def _bf16_rows(Y):
+    return torch.as_tensor(Y).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("F", [128, 256])
+def test_cg_solve_full_freezing_rows_match_pallas(F, bf16):
+    # rows that freeze at different CG steps side by side in the 8-row blocks
+    # of the kernels (lockstep masking), rows already at their solution, an
+    # all-padding row, and C = 45, no multiple of 8
+    Y, idx, dat, x0, yty, steps = cg_kernels.freeze_case(
+        45, 32, F, seed=F, seen=_bf16_rows if bf16 else None)
+    got, want = _both("cg_full", Y, idx, dat, x0, yty, bf16)
+    tol = BF16_TOL if bf16 else F32_TOL
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    at_start = steps == 0
+    np.testing.assert_array_equal(got[at_start], x0[at_start])
+
+
+@pytest.mark.parametrize("F", [10, 128, 256])
+def test_freeze_case_rows_freeze_at_their_steps(F):
+    # the plain solve leaves x of a frozen row exactly as it was: row c's x
+    # after steps[c] CG steps is its x after 3, and it moved at steps[c]
+    Y, idx, dat, x0, yty, steps = cg_kernels.freeze_case(45, 32, F, seed=F)
+    args = [torch.as_tensor(a) for a in (Y, idx, dat, x0, yty)]
+    xs = [cg_kernels.cg_solve_full(*args, cg_steps=s).numpy() for s in range(4)]
+    assert set(steps) == {-1, 0, 1, 2, 3}
+    for c, s in enumerate(steps):
+        if s < 0:
+            assert not np.array_equal(xs[2][c], xs[3][c])
+            continue
+        np.testing.assert_array_equal(xs[s][c], xs[3][c])
+        if s > 0:
+            assert not np.array_equal(xs[s - 1][c], xs[s][c])
+
+
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(16, 1536, 128), (16, 768, 256), (8, 2048, 64), (20, 16, 8)])
 def test_gramian_cg_solve_matches_pallas(shape, bf16):

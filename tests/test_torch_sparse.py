@@ -4,11 +4,14 @@ The same scipy matrix goes to both ``BucketedCSR`` classes; the host packing
 is integer bookkeeping, so every array must be exactly equal (no tolerance).
 """
 
+import os
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
 
+import implicit_tpu_torch
 from implicit_tpu import sparse as jsparse
 from implicit_tpu_torch import native as tnative
 from implicit_tpu_torch import sparse as tsparse
@@ -83,6 +86,14 @@ def test_numpy_packer_matches_native():
         tnative._lib, tnative._tried = lib, tried
     for a, b in zip(native, plain):
         np.testing.assert_array_equal(a, b)
+
+
+def test_packer_source_is_the_ports_own():
+    # the port compiles its own copy of the packer, never the JAX package's
+    pkg = os.path.dirname(os.path.abspath(implicit_tpu_torch.__file__))
+    src = os.path.abspath(tnative._SRC)
+    assert os.path.commonpath([pkg, src]) == pkg
+    assert os.path.isfile(src)
 
 
 def test_device_buckets_on_cpu():
