@@ -11,8 +11,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    no CUDA device is a failure;
 1. build the CUDA kernels from ``implicit_tpu_torch/ops/csrc`` (nvcc, one
    process per library, all at once, always from the sources), and print
-   ptxas's registers and spills of every ``cg_full`` instantiation, which
-   must not spill;
+   ptxas's registers and spills of every ``cg_full``, ``weighted_matvec``
+   and ``cg_update`` instantiation, which must not spill;
 2. each kernel against its plain PyTorch version on the card, in float32,
    bfloat16 and int8 (per-row scales), at the fit's own class shapes, with
    times and the least time the card could take (``bound``); the same bar
@@ -23,17 +23,31 @@ Phases, each printing its own lines; any failure exits non-zero:
    different CG steps in one block; each frozen row must keep its x bit
    for bit). ``gramian_cg`` also runs at the fit's head-class shape, where
    each row is split over many blocks, and in float32 must land 10x closer
-   to the plain version than the plain version run in TF32;
+   to the plain version than the plain version run in TF32.
+   ``weighted_matvec`` also runs at F=320 and at the wide fits' own short
+   and long classes and head class (f=512 bf16 and int8, f=320 f32), each
+   case twice for the same bits; ``cg_update`` (the dense term and masked
+   update of the wide fits' CG) at both wide fits' short class, the residual
+   pass and a CG step, twice for the same bits, against a wrong reference
+   whose dense term drops YtY_reg's last row. Times are means over a host
+   loop of launches (``cuda_ms``), as a caller sees them; the kernels whose
+   launches are short (``weighted_matvec``, ``cg_update``) also give the
+   device time of the same launches replayed from a CUDA graph
+   (``cuda_graph_ms``) beside it;
 3. the main paths, each with the launch counters set to 0 just before it
    and read just after, which must show every routed chunk:
    ``AlternatingLeastSquares.fit`` at the last.fm-360k shape (360k users x
    160k items, 17.5M nnz) at factors=128 in float32, bfloat16 and bfloat16
    with ``gather_quant=True``; at factors=256 with ``gather_quant="auto"``
-   (int8 on the item side only) and ``False``; one user-side half-iteration
-   of the composed CG on ``weighted_matvec`` (``_cg_class(use_pallas=True)``)
-   with the float32, bfloat16 and int8 tables against the same CG on the
-   plain sparse term; then batched ``recommend`` and ``similar_items``;
-4. quality: p@10 > 0.2 on the committed stdlib corpus, unquantized and with
+   (int8 on the item side only) and ``False``; the wide fits, factors=512
+   bfloat16 and factors=320 float32 (2 iterations), whose every class solves
+   in the composed CG on ``weighted_matvec`` and ``cg_update``; one
+   user-side half-iteration of that composed CG
+   (``_cg_class(use_pallas=True)``) at f=128 with the float32, bfloat16 and
+   int8 tables against the plain CG; then batched ``recommend`` and
+   ``similar_items``;
+4. quality: p@10 > 0.2 on the committed stdlib corpus (the port's copy,
+   ``implicit_tpu_torch/datasets/_data``), unquantized and with
    ``gather_quant=True``.
 
 The second-to-last lines are one JSON object of per-kernel results and the
@@ -51,7 +65,8 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CORPUS = os.path.join(ROOT, "implicit_tpu", "datasets", "_data", "stdlib_corpus.npz")
+CORPUS = os.path.join(ROOT, "implicit_tpu_torch", "datasets", "_data", "stdlib_corpus.npz")
+
 
 # kernel vs plain: same inputs, same f32 accumulation, different summation
 # order. rtol = atol: 1e-4 in float32; in bfloat16 2e-3, the bar of the JAX
@@ -87,8 +102,42 @@ KERNELS = {
     "weighted_matvec": dict(
         source="implicit_tpu_torch/ops/csrc/weighted_matvec.cu",
         replaces="implicit_tpu/ops/pallas_ops.py:46",
-        cases={"shape": ((1024, 600, 128), VARIANTS)}),  # L not a multiple of 32
+        cases={
+            "shape": ((1024, 600, 128), VARIANTS),  # L not a multiple of 32
+            "f320_shape": ((1024, 600, 320), VARIANTS),
+            # the wide fits' classes, which they solve in the composed CG:
+            # short rows and long rows, C as the fit cuts them (checked
+            # against wide_class_shape), and the head class (its 8 rows, each
+            # cut into many L-slices)
+            "f512_short": ((65536, 64, 512), ("bf16", "i8")),
+            "f512_long": ((512, 8192, 512), ("bf16", "i8")),
+            "f512_head_class": ((8, 65536, 512), ("bf16",)),
+            "f320_short": ((52424, 64, 320), ("f32",)),
+            "f320_long": ((408, 8192, 320), ("f32",)),
+            "f320_head_class": ((8, 65536, 320), ("f32",)),
+        }),
+    # reads no table: one entry point, float32 vectors ("f32"); L unused
+    "cg_update": dict(
+        source="implicit_tpu_torch/ops/csrc/cg_update.cu",
+        # the CG arithmetic of _cg_full_kernel (and of _gramian_cg_kernel,
+        # :292) past F = 256
+        replaces="implicit_tpu/ops/pallas_ops.py:173",
+        cases={
+            "shape": ((65536, 64, 512), ("f32",)),  # the f=512 fit's short class
+            "f320_short": ((52424, 64, 320), ("f32",)),
+        }),
 }
+
+# cases whose float32 sums run over tens of thousands of entries: the same
+# sum in another order moves by up to about n eps sum |terms| (4.3e-4 at the
+# f=320 head class, 32,768 live entries per row, outputs up to ~40; an H100
+# run), which no elementwise 1e-4 bar holds where an output is near 0. Their
+# bar is relative to the output's scale, as the tests' _within holds solves.
+SCALE_BAR = {("weighted_matvec", "f320_head_class")}
+
+# the wide fits' classes in KERNELS, as (factors, compute dtype) by case
+WIDE_CASES = {"f512_short": (512, "bfloat16"), "f512_long": (512, "bfloat16"),
+              "f320_short": (320, "float32"), "f320_long": (320, "float32")}
 
 # the card's peaks for bound_ms (H100 SXM data sheet, dense, at 700 W): HBM,
 # float32 on the CUDA cores, and the tensor cores in TF32 and bfloat16
@@ -127,6 +176,31 @@ def cuda_ms(fn, reps):
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cuda_graph_ms(fn, reps):
+    """Mean device milliseconds per call over ``reps`` calls captured in one
+    CUDA graph and replayed, after a warm-up: the launches back to back,
+    without the host's time between them (the wrapper's Python), which
+    ``cuda_ms`` also counts when a launch is shorter than it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -202,9 +276,11 @@ def drop_last_entry(w, bv):
     return w, bv
 
 
-def check_against(tag, got, want, wrong, tol, what_wrong):
-    """max |got - want|, with the bar rtol = atol = tol; the bar must hold
-    against ``want`` and reject ``wrong``."""
+def check_against(tag, got, want, wrong, tol, what_wrong, scaled=False):
+    """max |got - want|, with the bar rtol = atol = tol elementwise, or with
+    ``scaled`` relative to the output's scale, |got - want| <= tol (1 + max
+    |want|) (``SCALE_BAR``); the bar must hold against ``want`` and reject
+    ``wrong``."""
     import torch
 
     torch.cuda.synchronize()
@@ -213,9 +289,11 @@ def check_against(tag, got, want, wrong, tol, what_wrong):
     err = float((got - want).abs().max())
     wrong_err = float((got - wrong).abs().max())
     bar = tol + tol * float(want.abs().max())
-    if not torch.allclose(got, want, rtol=tol, atol=tol):
+    close = (lambda ref: float((got - ref).abs().max()) <= bar) if scaled else (
+        lambda ref: torch.allclose(got, ref, rtol=tol, atol=tol))
+    if not close(want):
         raise AssertionError(f"{tag}: kernel disagrees with plain version ({err:.3e})")
-    if torch.allclose(got, wrong, rtol=tol, atol=tol):
+    if close(wrong):
         raise AssertionError(f"{tag}: the bar does not tell the plain version from {what_wrong}")
     return dict(max_abs_err=err, bar=bar, wrong_ref_err=wrong_err)
 
@@ -223,16 +301,24 @@ def check_against(tag, got, want, wrong, tol, what_wrong):
 def tf32_check(tag, got, ref):
     """The float32 kernel against the float32 plain version must land at
     least 10x closer than the same plain version run in TF32 does: the 1e-4
-    bar alone would pass a single-pass TF32 kernel."""
+    bar alone would pass a single-pass TF32 kernel. The plain versions pin
+    full float32 per product (``full_f32_matmul``); the TF32 run lifts that
+    pin and turns TF32 on."""
+    import contextlib
+
     import torch
 
+    from implicit_tpu_torch.ops import cg_kernels
+
     want = ref()
-    saved = torch.backends.cuda.matmul.allow_tf32
+    saved, pin = torch.backends.cuda.matmul.allow_tf32, cg_kernels.full_f32_matmul
     torch.backends.cuda.matmul.allow_tf32 = True
+    cg_kernels.full_f32_matmul = contextlib.nullcontext
     try:
         tf32 = ref()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+        cg_kernels.full_f32_matmul = pin
     err = float((got - want).abs().max())
     tf32_err = float((tf32 - want).abs().max())
     if not err <= 0.1 * tf32_err:
@@ -291,11 +377,114 @@ def bound(name, Y, scales, idx, dat, passes=None):
     return 1e3 * max(t_bytes, t_flops), by, flops + mma_flops, nbytes
 
 
+def update_bound(C, F):
+    """(bound_ms, bound_by, flops, bytes) of one cg_update step on (C, F):
+    the dense term's 2 F^2 flops per row at float32 accuracy on the tensor
+    cores (3xTF32, a third of the TF32 peak, as ``bound`` takes the gramian
+    build) and the update's 10 F on the CUDA cores, against YtY_reg and the
+    row vectors read once (p, s, x, r and rs, act) and written once (x, r, p
+    and rs, act)."""
+    flops = 2.0 * C * F * F + 10.0 * C * F
+    nbytes = 4.0 * F * F + 7 * 4.0 * C * F + 4 * 4.0 * C
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_flops = 2.0 * C * F * F / (PEAK_TF32_FLOPS / 3) + 10.0 * C * F / PEAK_F32_FLOPS
+    return 1e3 * max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations", \
+        flops, nbytes
+
+
+def update_inputs(C, F, device, seed):
+    """cg_update's inputs at (C, F) from a numpy seed: YtY_reg, x0, the
+    residual pass's sparse term b, and a positive semidefinite B standing in
+    for the sparse term of a step (s = p B). Row 1 starts at its solution
+    (x0 = b = 0) and must never move."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    Ys, Zs = (rng.standard_normal((4096, F), dtype=np.float32) * 0.1 for _ in range(2))
+    x0 = rng.standard_normal((C, F), dtype=np.float32) * 0.01
+    b = rng.standard_normal((C, F), dtype=np.float32) * 0.1
+    x0[1] = b[1] = 0.0
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return t(Ys.T @ Ys + 0.05 * np.eye(F, dtype=np.float32)), t(x0), t(b), t(Zs.T @ Zs)
+
+
+def update_case(tag, shape, device, tol):
+    """cg_update against its plain version at (C, F): the residual pass,
+    then a CG step from the plain version's state, each twice for the same
+    bits and against a wrong reference (the dense term without YtY_reg's
+    last row); the step must also land 10x closer to the plain version
+    than the plain version run in TF32 (``tf32_check``). Returns (results,
+    run, ref): run and ref time a step."""
+    import torch
+
+    from implicit_tpu_torch.ops import cg_kernels
+
+    C, _, F = shape
+    yty, x0, b, B = update_inputs(C, F, device, seed=C + F)
+    wrong_yty = yty.clone()
+    wrong_yty[-1] = 0.0
+
+    def one_pass(update, state, s, first, m=yty):
+        x, r, p, rs, act = (t.clone() for t in state)
+        update(s, m, x0 if first else p, x, r, p, rs, act, first)
+        return x, r, p, rs, act
+
+    flat = lambda out: torch.cat([t.reshape(-1) for t in out[:4]])  # noqa: E731
+    state = [torch.zeros_like(x0) for _ in range(3)] + [
+        torch.zeros(C, device=device), torch.zeros(C, dtype=torch.int32, device=device)]
+    res = None
+    for first in (True, False):
+        with cg_kernels.full_f32_matmul():
+            s = b if first else state[2] @ B  # the sparse term
+        got = one_pass(cg_kernels.cg_update, state, s, first)
+        want = one_pass(cg_kernels.cg_update_plain, state, s, first)
+        wrong = one_pass(cg_kernels.cg_update_plain, state, s, first, wrong_yty)
+        again = one_pass(cg_kernels.cg_update, state, s, first)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"{tag}: two runs on the same inputs differ")
+        if not torch.equal(got[4], want[4]) or got[0][1].any():
+            raise AssertionError(f"{tag}: active rows differ, or the row at its solution moved")
+        r = check_against(f"{tag} {'residual pass' if first else 'CG step'}", flat(got),
+                          flat(want), flat(wrong), tol, "YtY_reg's last row dropped")
+        res = r if res is None else {k: max(res[k], r[k]) for k in r}
+        if not first:
+            res["tf32_ref_err"] = tf32_check(f"{tag} CG step", flat(got), lambda: flat(
+                one_pass(cg_kernels.cg_update_plain, state, s, first)))
+        state = want
+    with cg_kernels.full_f32_matmul():
+        s = state[2] @ B
+    bufs = [t.clone() for t in state]
+    plain_bufs = [t.clone() for t in state]
+    # timed on the CG step, cg_steps of the cg_steps + 1 passes per solve
+    run = lambda: cg_kernels.cg_update(s, yty, bufs[2], *bufs, False)  # noqa: E731
+    ref = lambda: cg_kernels.cg_update_plain(  # noqa: E731
+        s, yty, plain_bufs[2], *plain_bufs, False)
+    return res, run, ref
+
+
+def wide_class_shape(factors, L, compute_dtype="bfloat16"):
+    """(C, L, F) of a full chunk of a class of row length L in a fit at this
+    width: C as the fit cuts it (``als_chunk_target``, ``chunk_pieces``)."""
+    from implicit_tpu_torch.sparse import als_chunk_target, chunk_pieces
+
+    target = als_chunk_target(factors, compute_dtype)
+    return chunk_pieces(1 << 30, L, target, 65536)[0][3], L, factors
+
+
 def phase_kernels(device):
     import torch
 
     from implicit_tpu_torch.ops import cg_kernels
     from implicit_tpu_torch.ops.als import _weights
+
+    for name, spec in KERNELS.items():
+        for which, (shape, _) in spec["cases"].items():
+            fit = WIDE_CASES.get("f512_short" if name == "cg_update" and which == "shape"
+                                 else which)
+            if fit and shape != wide_class_shape(fit[0], shape[1], fit[1]):
+                raise AssertionError(f"{name} {which}: {shape} is not the fit's chunk "
+                                     f"{wide_class_shape(fit[0], shape[1], fit[1])}")
 
     solves = {"cg_full": (cg_kernels.cg_solve_full, cg_kernels.cg_solve_full_plain),
               "gramian_cg": (cg_kernels.gramian_cg_solve, cg_kernels.gramian_cg_solve_plain)}
@@ -304,9 +493,28 @@ def phase_kernels(device):
         for which, (shape, variants) in spec["cases"].items():
             C, L, F = shape
             for variant in variants:
+                tol = TOL[variant]
+                if name == "cg_update":
+                    tag = f"cg_update C={C} F={F}"
+                    res, run, ref = update_case(tag, shape, device, tol)
+                    res["ms"] = cuda_ms(run, REPS)
+                    res["graph_ms"] = cuda_graph_ms(run, REPS)
+                    res["plain_ms"] = cuda_ms(ref, REPS)
+                    res["bound_ms"], res["bound_by"], flops, nbytes = update_bound(C, F)
+                    say(2, f"{tag}: max_abs_err={res['max_abs_err']:.3e} (bar rtol=atol={tol}: "
+                           f"{res['bar']:.3e}; against the wrong reference: "
+                           f"{res['wrong_ref_err']:.3e}; the TF32 plain version is "
+                           f"{res['tf32_ref_err']:.3e} off; twice for the same bits) kernel "
+                           f"{res['ms']:.4f} ms (graph {res['graph_ms']:.4f}), plain "
+                           f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms by "
+                           f"{res['bound_by']} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} "
+                           f"MB), {100 * res['bound_ms'] / res['ms']:.1f}% of it")
+                    results[name].setdefault(which, {})[variant] = res
+                    del run, ref
+                    torch.cuda.empty_cache()
+                    continue
                 Y, scales, idx, dat, x0, yty, steps = variant_case(
                     shape, variant, device, freeze=which == "freeze_case")
-                tol = TOL[variant]
                 tag = f"{name} {variant} C={C} L={L} F={F}" + (
                     " freeze case" if steps is not None else "")
                 if name in solves:
@@ -337,6 +545,8 @@ def phase_kernels(device):
                         raise AssertionError(f"{tag}: two runs on the same inputs differ")
                     passes = solve_passes(plain, Y, scales, idx, dat, x0, yty)
                 else:
+                    if scales is not None:  # float32 scales, as the wide solve passes them
+                        scales = scales.float()
                     w, bv = _weights(dat)
                     w_short, bv_short = drop_last_entry(w, bv)
                     v = x0 * 10
@@ -347,8 +557,13 @@ def phase_kernels(device):
                         wrong = cg_kernels.weighted_matvec_plain(
                             Y, idx, w_short, bv_short, v, alpha, beta, scales)
                         r = check_against(f"{tag} (alpha, beta)=({alpha:g}, {beta:g})", got,
-                                          want, wrong, tol, "each row's last entry dropped")
+                                          want, wrong, tol, "each row's last entry dropped",
+                                          scaled=(name, which) in SCALE_BAR)
                         res = r if alpha == 1.0 else {k: max(res[k], r[k]) for k in r}
+                        again = cg_kernels.weighted_matvec(Y, idx, w, bv, v, alpha, beta, scales)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{tag}: two runs on the same inputs differ")
                     # timed on the A p pass, cg_steps of the cg_steps + 1 per solve
                     run = lambda: cg_kernels.weighted_matvec(  # noqa: E731
                         Y, idx, w, bv, v, 0.0, 1.0, scales)
@@ -356,12 +571,17 @@ def phase_kernels(device):
                         Y, idx, w, bv, v, 0.0, 1.0, scales)
                     passes = None
                 res["ms"] = cuda_ms(run, REPS)
+                if name == "weighted_matvec":  # the device time of the same launches
+                    res["graph_ms"] = cuda_graph_ms(run, REPS)
                 res["plain_ms"] = cuda_ms(ref, REPS)
                 res["bound_ms"], res["bound_by"], flops, nbytes = bound(
                     name, Y, scales, idx, dat, passes)
                 tf32 = (f"; the TF32 plain version is {res['tf32_ref_err']:.3e} off"
                         if "tf32_ref_err" in res else "")
-                say(2, f"{tag}: max_abs_err={res['max_abs_err']:.3e} (bar rtol=atol={tol}: "
+                if "graph_ms" in res:
+                    tf32 += f"; twice for the same bits; graph {res['graph_ms']:.4f} ms"
+                scale = " of scale" if (name, which) in SCALE_BAR else ""
+                say(2, f"{tag}: max_abs_err={res['max_abs_err']:.3e} (bar rtol=atol={tol}{scale}: "
                        f"{res['bar']:.3e}; against the wrong reference: "
                        f"{res['wrong_ref_err']:.3e}{tf32}) kernel {res['ms']:.4f} ms, plain "
                        f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms by "
@@ -374,9 +594,12 @@ def phase_kernels(device):
 
 
 def expected_launches(csr, factors, compute_dtype, iterations, gather_quant=(False, False),
-                      grid="pow2"):
-    """Chunks the fit routes to each kernel entry point: both sides, every
-    iteration; a side with gather_quant runs the int8 variants."""
+                      grid="pow2", cg_steps=3):
+    """Launches of each kernel entry point the fit's routing asks for: both
+    sides, every iteration, one per chunk, and cg_steps + 1 of
+    weighted_matvec and of cg_update per chunk where the width (more than
+    ``cg_kernels.MAX_FACTORS``) sends every class to the composed CG; a side
+    with gather_quant runs the int8 variants."""
     from implicit_tpu_torch.ops import cg_kernels
     from implicit_tpu_torch.ops.als import _full_cg_max_l
     from implicit_tpu_torch.sparse import als_chunk_target, chunk_pieces, length_class_grid
@@ -390,6 +613,10 @@ def expected_launches(csr, factors, compute_dtype, iterations, gather_quant=(Fal
         Ls, counts = np.unique(length_class_grid(nnz[nnz > 0], 8, grid), return_counts=True)
         for L, count in zip(Ls, counts):
             chunks = sum(p[2] for p in chunk_pieces(int(count), int(L), target, 65536))
+            if factors > cg_kernels.MAX_FACTORS:
+                out[f"weighted_matvec_{variant}"] += (cg_steps + 1) * chunks * iterations
+                out["cg_update"] += (cg_steps + 1) * chunks * iterations
+                continue
             kernel = "cg_full" if L <= max_l else "gramian_cg"
             out[f"{kernel}_{variant}"] += chunks * iterations
     return out
@@ -407,7 +634,8 @@ def fit_path(tag, plays, device, factors, dtype, gather_quant, iterations=3):
     model = AlternatingLeastSquares(factors=factors, iterations=iterations, random_state=0,
                                     dtype=dtype, gather_quant=gather_quant, device=device)
     sides = model._gather_quant_sides(*plays.shape)
-    want = expected_launches(plays, factors, model._compute_dtype, iterations, sides)
+    want = expected_launches(plays, factors, model._compute_dtype, iterations, sides,
+                             cg_steps=model.cg_steps)
     times = []
     cg_kernels.reset_launches()
     t0 = time.perf_counter()
@@ -427,11 +655,11 @@ def fit_path(tag, plays, device, factors, dtype, gather_quant, iterations=3):
 
 
 def composed_cg_path(plays, device):
-    """One user-side half-iteration of the composed CG with weighted_matvec as
-    its sparse term (``_cg_class(use_pallas=True)``) over every class, for
-    the float32 / bfloat16 / int8 tables; each held to the same CG on the
-    plain sparse term, with the same bfloat16 dequant for int8
-    (``cg_solve_full_plain`` with scales).
+    """One user-side half-iteration of the composed CG on weighted_matvec (the
+    sparse term) and cg_update (the dense term and update),
+    ``_cg_class(use_pallas=True)``, over every class, for the float32 /
+    bfloat16 / int8 tables; each held to the plain CG, with the same
+    bfloat16 dequant for int8 (``cg_solve_full_plain`` with scales).
 
     The factors are drawn from a seed, mixed in sign as ``kernel_case``'s:
     from a fitted model's factors, 3-step float32 CG amplifies summation
@@ -470,16 +698,17 @@ def composed_cg_path(plays, device):
         tol = TOL[variant]
         err = float((got - want).abs().max())
         routed = dict.fromkeys(launches, 0)
-        routed[f"weighted_matvec_{variant}"] = (3 + 1) * len(chunks)
-        say(3, f"composed CG on weighted_matvec, user side, {variant} table: {len(chunks)} "
-               f"chunks, {secs:.4f} s; max_abs_err against the plain sparse term {err:.3e} "
+        routed[f"weighted_matvec_{variant}"] = routed["cg_update"] = (3 + 1) * len(chunks)
+        say(3, f"composed CG on weighted_matvec and cg_update, user side, {variant} table: "
+               f"{len(chunks)} chunks, {secs:.4f} s; max_abs_err against the plain CG {err:.3e} "
                f"(rtol=atol={tol}, |x| <= {float(want.abs().max()):.3f}); "
                f"launches {nonzero(launches)}")
         if not torch.isfinite(got).all() or not torch.allclose(got, want, rtol=tol, atol=tol):
-            raise AssertionError(f"composed CG {variant}: disagrees with the plain sparse term")
+            raise AssertionError(f"composed CG {variant}: disagrees with the plain CG")
         if launches != routed:
             raise AssertionError(f"composed CG {variant}: launches {launches} != {routed}")
-        all_launches[f"weighted_matvec_{variant}"] = launches[f"weighted_matvec_{variant}"]
+        for k, v in nonzero(launches).items():
+            all_launches[k] = all_launches.get(k, 0) + v
         del got, want
         torch.cuda.empty_cache()
     return all_launches
@@ -542,6 +771,15 @@ def phase_main_path(device):
             raise AssertionError(f'gather_quant="auto" resolved to {sides}, not (False, True)')
         add(launches)
         del model
+    # wider than cg_full and gramian_cg take: every class in the composed CG
+    # on weighted_matvec and cg_update
+    for tag, factors, dtype in (("f=512 bfloat16", 512, np.float16),
+                                ("f=320 float32", 320, np.float32)):
+        model, _, _, launches = fit_path(tag, plays, device, factors, dtype, False,
+                                         iterations=2)
+        add(launches)
+        del model
+        torch.cuda.empty_cache()
     add(composed_cg_path(plays, device))
     serve_checks("f=128 float32", f32, plays)
     serve_checks("f=128 bfloat16 int8", quant, plays)
@@ -579,11 +817,13 @@ def kernel_rows(kernels, launches):
     launches (all variants), the largest error over every case, the float32
     times and bound at the kernel's "shape" case, and each case's numbers by
     variant. No single PyTorch call computes any of these functions (whole
-    per-row CG solves; two dependent contractions), so library_ms is null."""
+    per-row CG solves; two dependent contractions; a product followed by
+    row-wise reductions and updates), so library_ms is null."""
     rows = []
     for name, spec in KERNELS.items():
         res = kernels[name]["shape"]
-        variants = {v: dict(launches=launches[f"{name}_{v}"], **res[v]) for v in VARIANTS}
+        variants = {v: dict(launches=launches.get(f"{name}_{v}", launches.get(name, 0)),
+                            **res[v]) for v in res}
         f32 = res["f32"]
         row = {
             "name": name, "route": "cuda", "source": spec["source"],
@@ -602,9 +842,20 @@ def kernel_rows(kernels, launches):
     return rows
 
 
-def ptxas_report(log, kernel="cg_full_kernel"):
+# each library's kernels, by the name in their mangled symbol, and the names
+# of their integer template parameters in order
+PTXAS_KERNELS = {
+    "cg_full": {"cg_full_kernel": ("VPT", "W")},
+    "weighted_matvec": {"wmv_narrow": ("CH", "G", "NCH"), "wmv_wide": ("CH",),
+                        "wmv_sum_slices": ()},
+    "cg_update": {"cg_update_kernel": ()},
+}
+
+
+def ptxas_report(log, kernels):
     """(instantiation, registers, spill stores, spill loads) per compiled
-    instantiation of ``kernel``, from nvcc's ``-Xptxas -v`` output."""
+    instantiation of the ``kernels`` ({name: template parameter names}),
+    from nvcc's ``-Xptxas -v`` output."""
     import re
 
     tables = (("QuantRows", "i8"), ("bfloat16", "bf16"), ("TableRowsIf", "f32"))
@@ -612,7 +863,9 @@ def ptxas_report(log, kernel="cg_full_kernel"):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1) if kernel in m.group(1) else None
+            name = m.group(1)
+            kernel = next((k for k in kernels if k in name), None)
+            name = name if kernel else None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -620,9 +873,10 @@ def ptxas_report(log, kernel="cg_full_kernel"):
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            table = next(t for key, t in tables if key in name)
-            args = re.findall(r"Li(\d+)E", name)  # VPT, then the load width W
-            out.append((f"{table} VPT={args[0]} W={args[1]}", int(m.group(1)), *spills))
+            table = [t for key, t in tables if key in name][:1]
+            args = re.findall(r"Li(\d+)E", name)
+            params = [f"{p}={a}" for p, a in zip(kernels[kernel], args)]
+            out.append((" ".join([kernel, *table, *params]), int(m.group(1)), *spills))
             name = None
     return out
 
@@ -646,11 +900,12 @@ def main():
     _build.load()
     say(1, f"kernels built+loaded in {time.perf_counter() - t0:.1f} s "
            f"(nvcc per library, s: {json.dumps(_build.BUILD_SECONDS)})")
-    report = ptxas_report(_build.BUILD_LOGS["cg_full"])
-    say(1, "cg_full ptxas (registers, spill stores/loads bytes): " + "; ".join(
-        f"{inst}: {regs} regs, {st}/{ld}" for inst, regs, st, ld in report))
-    if not report or any(st or ld for _, _, st, ld in report):
-        raise AssertionError("cg_full: no ptxas report, or a variant spills")
+    for lib, kernels in PTXAS_KERNELS.items():
+        report = ptxas_report(_build.BUILD_LOGS[lib], kernels)
+        say(1, f"{lib} ptxas (registers, spill stores/loads bytes): " + "; ".join(
+            f"{inst}: {regs} regs, {st}/{ld}" for inst, regs, st, ld in report))
+        if not report or any(st or ld for _, _, st, ld in report):
+            raise AssertionError(f"{lib}: no ptxas report, or an instantiation spills")
 
     kernels = phase_kernels(device)
     launches = phase_main_path(device)

@@ -7,17 +7,12 @@ mirrors ``implicit_tpu``'s module layout and public surface; it imports
 ``torch`` and never ``jax``.
 
 Models take ``device=`` (default ``"cuda"``); asking for CUDA where there is
-none raises instead of falling back to the CPU.
+none raises instead of falling back to the CPU. Importing the package sets
+no global torch flag: the port's float32 products pin full float32 each
+(``_device.full_f32_matmul``).
 """
 
-import torch
-
-# float32 products in full float32, as the JAX package's Precision.HIGHEST
-# dots: TF32 keeps ~3 decimal digits and would move the solves and scores
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-
-from . import als  # noqa: E402
+from . import als
 
 __version__ = "0.1.0"
 

@@ -46,9 +46,13 @@ SIGNATURES = {
     "gramian_cg": {**_variants("gramian_cg",
                                [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
                    "gramian_cg_slices": [_I, _I, _I]},
-    # (table, idx, w, bv, v, out, C, L, F, alpha, beta, stream)
-    "weighted_matvec": _variants("weighted_matvec",
-                                 [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P]),
+    # (table, idx, w, bv, v, out, part, C, L, F, slices, alpha, beta, stream), and
+    # the slice count (table type 0 f32 / 1 bf16 / 2 int8, table, C, L, F)
+    "weighted_matvec": {**_variants("weighted_matvec",
+                                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P]),
+                        "weighted_matvec_slices": [_I, _P, _I, _I, _I]},
+    # (yty, v, s, t, x, r, p, rs, act, C, F, first, stream)
+    "cg_update": {"cg_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
 }
 
 _libs = {}

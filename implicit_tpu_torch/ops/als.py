@@ -8,6 +8,10 @@ time, class by class (see :mod:`implicit_tpu_torch.sparse`):
   kernel (:func:`cg_kernels.cg_solve_full`);
 - longer rows solve in the explicit-normal-matrix kernel
   (:func:`cg_kernels.gramian_cg_solve`);
+- at more than ``cg_kernels.MAX_FACTORS`` factors, which those two kernels
+  do not take, every class solves in the composed CG on two kernels,
+  ``weighted_matvec`` (the sparse term of each pass) and ``cg_update`` (its
+  dense term and the CG update): :func:`_cg_class` with ``use_pallas=True``;
 - ``use_cg=False`` solves the dense normal equations (the Cholesky/`posv`
   path of the reference) with batched ``torch.linalg.solve``.
 
@@ -21,6 +25,9 @@ routes (``_cho_class``, float64, ``_cg_class(use_pallas=False)``) read a
 as the JAX package's do; the kernel routes dequantize to bfloat16 whatever
 the compute dtype, as the TPU kernels do.
 
+float32 products run in full float32 (``_device.full_f32_matmul``), as the
+JAX package's ``Precision.HIGHEST`` dots, whatever the caller's setting.
+
 Confidences follow the reference: a negative value means "disliked"
 (P = 0, C = |c|); padding carries c == 0 and contributes nothing.
 """
@@ -28,6 +35,7 @@ Confidences follow the reference: a negative value means "disliked"
 import numpy as np
 import torch
 
+from .._device import full_f32_matmul
 from . import cg_kernels
 
 _DTYPES = {
@@ -53,7 +61,8 @@ def gramian(Y, reg):
     """YtY + reg*I in the solve precision: float64 for float64, else float32."""
     dt = torch.float64 if Y.dtype == torch.float64 else torch.float32
     Y = Y.to(dt)
-    return Y.T @ Y + reg * torch.eye(Y.shape[1], dtype=dt, device=Y.device)
+    with full_f32_matmul():
+        return Y.T @ Y + reg * torch.eye(Y.shape[1], dtype=dt, device=Y.device)
 
 
 def _quantize_table(Y, compute_dtype):
@@ -94,29 +103,34 @@ def _weights(dat):
     return w, bv
 
 
-def _masked_cg(x, r, apply_a, cg_steps):
-    """``cg_steps`` masked conjugate-gradient iterations from residual ``r``.
+def _cg_step(x, r, p, rsold, active, Ap):
+    """One masked conjugate-gradient step from Ap = A p; returns the new
+    (x, r, p, rsold, active).
 
     Rows whose squared residual drops below 1e-20 freeze; every other row
-    advances in lockstep. ``apply_a`` applies each row's normal matrix.
+    advances in lockstep.
     """
     one = torch.ones((), dtype=x.dtype, device=x.device)
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    pAp = (p * Ap).sum(1)
+    alpha = torch.where(active, rsold / torch.where(pAp == 0, one, pAp), zero)
+    x = x + alpha[:, None] * p
+    r = r - alpha[:, None] * Ap
+    rsnew = (r * r).sum(1)
+    still = active & (rsnew >= 1e-20)
+    beta = torch.where(active, rsnew / torch.where(active, rsold, one), zero)
+    p = torch.where(still[:, None], r + beta[:, None] * p, p)
+    return x, r, p, torch.where(still, rsnew, rsold), still
+
+
+def _masked_cg(x, r, apply_a, cg_steps):
+    """``cg_steps`` masked conjugate-gradient steps (:func:`_cg_step`) from
+    residual ``r``; ``apply_a`` applies each row's normal matrix."""
     p = r
     rsold = (r * r).sum(1)
     active = rsold >= 1e-20
     for _ in range(cg_steps):
-        Ap = apply_a(p)
-        pAp = (p * Ap).sum(1)
-        alpha = torch.where(active, rsold / torch.where(pAp == 0, one, pAp), zero)
-        x = x + alpha[:, None] * p
-        r = r - alpha[:, None] * Ap
-        rsnew = (r * r).sum(1)
-        still = active & (rsnew >= 1e-20)
-        beta = torch.where(active, rsnew / torch.where(active, rsold, one), zero)
-        p = torch.where(still[:, None], r + beta[:, None] * p, p)
-        rsold = torch.where(still, rsnew, rsold)
-        active = still
+        x, r, p, rsold, active = _cg_step(x, r, p, rsold, active, apply_a(p))
     return x
 
 
@@ -127,8 +141,9 @@ def _composed_cg(x0, YtY_reg, sparse_term, cg_steps):
     over each row's entries (a weighted matvec); the residual is
     sparse_term(x0, 1, -1) - x0 YtY_reg.
     """
-    r = sparse_term(x0, 1.0, -1.0) - x0 @ YtY_reg
-    return _masked_cg(x0, r, lambda v: sparse_term(v, 0.0, 1.0) + v @ YtY_reg, cg_steps)
+    with full_f32_matmul():
+        r = sparse_term(x0, 1.0, -1.0) - x0 @ YtY_reg
+        return _masked_cg(x0, r, lambda v: sparse_term(v, 0.0, 1.0) + v @ YtY_reg, cg_steps)
 
 
 def _class_chunks(cls):
@@ -170,22 +185,19 @@ def _cg_class(X, Yc, YtY_reg, chunks, cg_steps, use_pallas=False):
 
     ``use_pallas=False`` (the float64 route and ``cg_solve_scan``) runs the
     plain composed CG on the table, a ``(q, s)`` pair dequantized at the
-    scale dtype. ``use_pallas=True`` takes :func:`cg_kernels.weighted_matvec`
-    as the sparse term of every pass, with the pair's scales, as the JAX
-    package's ``_cg_class(..., use_pallas=True)`` takes its Pallas kernel.
+    scale dtype. ``use_pallas=True`` solves each chunk in
+    :func:`cg_kernels.cg_solve_wide`, with the pair's scales: every pass's
+    sparse term in the ``weighted_matvec`` kernel, as the JAX package's
+    ``_cg_class(..., use_pallas=True)`` takes its Pallas kernel, and its
+    dense term and CG update in the ``cg_update`` kernel.
     """
     if not use_pallas:
         Yd = _dequantize_table(Yc)
         return _solve_class(X, chunks, lambda x0, idx, dat: cg_kernels.cg_solve_full_plain(
             Yd, idx, dat, x0, YtY_reg, cg_steps))
     Y, scales = _table_and_scales(Yc)
-
-    def solve_chunk(x0, idx, dat):
-        w, bv = _weights(dat)
-        return _composed_cg(x0, YtY_reg, lambda v, alpha, beta: cg_kernels.weighted_matvec(
-            Y, idx, w, bv, v, alpha, beta, scales=scales), cg_steps)
-
-    return _solve_class(X, chunks, solve_chunk)
+    return _solve_class(X, chunks, lambda x0, idx, dat: cg_kernels.cg_solve_wide(
+        Y, idx, dat, x0, YtY_reg, cg_steps, scales=scales))
 
 
 def _cho_class(X, Yc, YtY_reg, chunks):
@@ -199,7 +211,8 @@ def _cho_class(X, Yc, YtY_reg, chunks):
 
     def solve_chunk(x0, idx, dat):
         A, b = cg_kernels.normal_equations(Yd, idx, dat, YtY_reg)
-        return torch.linalg.solve(A, b[..., None])[..., 0]
+        with full_f32_matmul():
+            return torch.linalg.solve(A, b[..., None])[..., 0]
 
     return _solve_class(X, chunks, solve_chunk)
 
@@ -233,16 +246,27 @@ def _full_cg_max_l(compute_dtype, factors=128):
 
 def _solve_side_core(X, Yc, YtY_reg, buckets, use_cg, cg_steps, compute_dtype):
     """Half-iteration with the gather table (a tensor or a ``(q, s)`` pair)
-    and the gramian precomputed."""
+    and the gramian precomputed.
+
+    The route of a class depends on the dtype, F and L only. Past
+    ``cg_kernels.MAX_FACTORS`` every class takes the composed CG on the
+    ``weighted_matvec`` and ``cg_update`` kernels (the JAX package runs its
+    cg_full and gramian_cg kernels there, or its composed CG where
+    ``gramian_tile_l`` finds no tile); it is a route, not a fallback: on
+    CUDA it launches the kernels.
+    """
     factors = X.shape[1]
     max_l = _full_cg_max_l(compute_dtype, factors)
     f64 = _torch_dtype(compute_dtype) == torch.float64
+    wide = factors > cg_kernels.MAX_FACTORS
     for cls in buckets.classes:
         chunks = _class_chunks(cls)
         if not use_cg:
             X = _cho_class(X, Yc, YtY_reg, chunks)
         elif f64:
             X = _cg_class(X, Yc, YtY_reg, chunks, cg_steps)
+        elif wide:
+            X = _cg_class(X, Yc, YtY_reg, chunks, cg_steps, use_pallas=True)
         elif cls.L <= max_l:
             X = _cg_full_class(X, Yc, YtY_reg, chunks, cg_steps)
         else:
@@ -314,12 +338,13 @@ def _loss_chunk_terms(X, Y, YtY, rows, idx, dat):
     x = X[rows.clamp(max=n_rows - 1)]
     x = torch.where(valid[:, None], x, torch.zeros((), dtype=x.dtype, device=x.device))
     Yu = Y[idx.long()]
-    yx = torch.einsum("clf,cf->cl", Yu, x)
     zero = torch.zeros((), dtype=dat.dtype, device=dat.device)
     mask = dat != 0
     conf = dat.abs()
-    temp = torch.where(dat > 0, -2.0 * dat, zero) + torch.where(mask, conf - 1.0, zero) * yx
-    r = x @ YtY + torch.einsum("cl,clf->cf", temp, Yu)
+    with full_f32_matmul():
+        yx = torch.einsum("clf,cf->cl", Yu, x)
+        temp = torch.where(dat > 0, -2.0 * dat, zero) + torch.where(mask, conf - 1.0, zero) * yx
+        r = x @ YtY + torch.einsum("cl,clf->cf", temp, Yu)
     return (r * x).sum(), torch.where(mask, conf, zero).sum()
 
 
@@ -333,7 +358,8 @@ def calculate_loss_bucketed(buckets, X, Y, reg):
 
     if isinstance(buckets, BucketedCSR):
         buckets = buckets.to_device(X.device)
-    YtY = Y.T @ Y
+    with full_f32_matmul():
+        YtY = Y.T @ Y
     loss = 0.0
     total_conf = 0.0
     for cls in buckets.classes:

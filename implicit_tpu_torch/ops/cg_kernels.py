@@ -1,7 +1,7 @@
 """Wrappers of the CUDA solve kernels, with their plain PyTorch versions.
 
-Three kernels carry the ALS solves (sources in ``csrc/``, notes at their
-heads), one for each TPU kernel of ``implicit_tpu/ops/pallas_ops.py``:
+Four kernels carry the ALS solves (sources in ``csrc/``, notes at their
+heads), for the three TPU kernels of ``implicit_tpu/ops/pallas_ops.py``:
 
 - :func:`cg_solve_full` (``csrc/cg_full.cu``) replaces ``_cg_full_kernel``:
   the whole warm-started masked CG solve of each row, matrix-free.
@@ -9,34 +9,42 @@ heads), one for each TPU kernel of ``implicit_tpu/ops/pallas_ops.py``:
   ``_gramian_cg_kernel``: explicit per-row normal matrix, then the same CG
   on it, for long rows.
 - :func:`weighted_matvec` (``csrc/weighted_matvec.cu``) replaces
-  ``_weighted_matvec_kernel``: one pass of the CG's sparse term, the
-  building block of the composed CG (``ops/als.py:_cg_class``).
+  ``_weighted_matvec_kernel``: one pass of the CG's sparse term.
+- :func:`cg_update` (``csrc/cg_update.cu``): one pass's dense term and
+  masked CG update. With :func:`weighted_matvec` it makes
+  :func:`cg_solve_wide`, the solve of every class of a fit wider than
+  :data:`MAX_FACTORS` (``ops/als.py:_cg_class``), where it replaces the CG
+  arithmetic of ``_cg_full_kernel`` and ``_gramian_cg_kernel``.
 
-Each takes the factor table and the chunk's indices, ``Y (N, F)`` and
-``idx (C, L) int32``, and gathers ``Y[idx]`` inside the kernel. ``Y`` is
+The first three take the factor table and the chunk's indices, ``Y (N,
+F)`` and ``idx (C, L) int32``, and gather ``Y[idx]`` inside the kernel. ``Y`` is
 float32 or bfloat16, or int8 with ``scales (N,)``: one scale per row (the
 ``gather_quant`` table of ``ops/als.py:_quantize_table``), dequantized as
 the TPU kernels' ``_dequant_tile`` does, to ``bf16(q * bf16(s))``
 (:func:`dequantize_rows`). A wrapper runs its kernel for CUDA tensors and
 raises on anything the kernel does not take; it uses the plain version only
 for tensors on the CPU. ``LAUNCHES`` counts kernel launches per C entry
-point (kernel and table type), so a run can show that it went through the
-kernels.
+point (kernel and table type; ``cg_update`` reads no table and has one), so
+a run can show that it went through the kernels.
 
 ``idx`` must index rows of ``Y`` (the bucketed CSR guarantees it); the
 kernels do not bounds-check it.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
+from .._device import full_f32_matmul
 from . import _build
 
 KERNELS = ("cg_full", "gramian_cg", "weighted_matvec")
 VARIANTS = ("f32", "bf16", "i8")
-LAUNCHES = {f"{k}_{v}": 0 for k in KERNELS for v in VARIANTS}
+LAUNCHES = {**{f"{k}_{v}": 0 for k in KERNELS for v in VARIANTS}, "cg_update": 0}
 
-# widest factor vector the kernels hold in registers (8 values per lane)
+# widest factor vector cg_full and gramian_cg hold in registers (8 values
+# per lane); weighted_matvec and cg_update take any width
 MAX_FACTORS = 256
 
 # the float32 operands of the kernels, by argument name, and their shapes
@@ -65,9 +73,10 @@ def weighted_matvec_reference(Yu, w, bv, v, alpha, beta):
     """
     acc = torch.float64 if Yu.dtype == torch.float64 else torch.float32
     Yf = Yu.to(acc)
-    t = torch.einsum("clf,cf->cl", Yf, v.to(acc))
-    coeff = alpha * bv.to(acc) + beta * (w.to(acc) * t)
-    return torch.einsum("cl,clf->cf", coeff, Yf)
+    with full_f32_matmul():
+        t = torch.einsum("clf,cf->cl", Yf, v.to(acc))
+        coeff = alpha * bv.to(acc) + beta * (w.to(acc) * t)
+        return torch.einsum("cl,clf->cf", coeff, Yf)
 
 
 def _gather(Y, idx, scales=None):
@@ -101,8 +110,9 @@ def normal_equations(Y, idx, dat, YtY_reg, scales=None):
 
     Yu = _gather(Y, idx, scales)
     w, bv = _weights(dat.to(Yu.dtype))
-    A = YtY_reg.to(Yu.dtype) + torch.einsum("clf,clg->cfg", Yu * w[..., None], Yu)
-    return A, torch.einsum("cl,clf->cf", bv, Yu)
+    with full_f32_matmul():
+        A = YtY_reg.to(Yu.dtype) + torch.einsum("clf,clg->cfg", Yu * w[..., None], Yu)
+        return A, torch.einsum("cl,clf->cf", bv, Yu)
 
 
 def _explicit_cg(A, b, x0, cg_steps):
@@ -110,8 +120,9 @@ def _explicit_cg(A, b, x0, cg_steps):
     from .als import _masked_cg
 
     x0 = x0.to(A.dtype)
-    r = b - torch.einsum("cfg,cg->cf", A, x0)
-    return _masked_cg(x0, r, lambda v: torch.einsum("cfg,cg->cf", A, v), cg_steps)
+    with full_f32_matmul():
+        r = b - torch.einsum("cfg,cg->cf", A, x0)
+        return _masked_cg(x0, r, lambda v: torch.einsum("cfg,cg->cf", A, v), cg_steps)
 
 
 def gramian_cg_solve_plain(Y, idx, dat, x0, YtY_reg, cg_steps=3, scales=None):
@@ -170,8 +181,9 @@ def normal_equations_split(Y, idx, dat, YtY_reg, scheme, scales=None):
     Yu = _gather(Y, idx, scales).float()
     w, bv = _weights(dat.float())
     terms = _split_terms(Yu * w[..., None], Yu, scheme)
-    A = YtY_reg.float() + sum(torch.einsum("clf,clg->cfg", p, q) for p, q in terms)
-    return A, torch.einsum("cl,clf->cf", bv, Yu)
+    with full_f32_matmul():
+        A = YtY_reg.float() + sum(torch.einsum("clf,clg->cfg", p, q) for p, q in terms)
+        return A, torch.einsum("cl,clf->cf", bv, Yu)
 
 
 def gramian_cg_solve_split(Y, idx, dat, x0, YtY_reg, scheme, cg_steps=3, scales=None):
@@ -222,13 +234,13 @@ def freeze_case(C, L, F, seed, n_table=4096, seen=None):
     return Y, idx, dat, x0, yty, steps
 
 
-def _check_args(Y, idx, scales, **operands):
+def _check_args(Y, idx, scales, max_factors=MAX_FACTORS, **operands):
     """Raises on any argument the CUDA kernels do not take; returns (C, L, F).
 
     ``Y`` is float32 or bfloat16 with ``scales=None``, or int8 with float32
     or bfloat16 ``scales (N,)``; ``operands`` are the float32 arguments by
     name (shapes in ``_SHAPES``). Everything lies on one CUDA device,
-    contiguous.
+    contiguous. ``max_factors`` is the kernel's widest F (None: any).
     """
     if scales is None:
         if Y.dtype not in (torch.float32, torch.bfloat16):
@@ -255,39 +267,47 @@ def _check_args(Y, idx, scales, **operands):
     if Y.dim() != 2 or idx.dim() != 2:
         raise ValueError("Y must be (N, F) and idx (C, L)")
     (C, L), F = idx.shape, Y.shape[1]
-    sizes = {"C": C, "L": L, "F": F}
+    wants = {"CL": (C, L), "CF": (C, F), "FF": (F, F)}
     for name, t in operands.items():
-        want = tuple(sizes[d] for d in _SHAPES[name])
-        if tuple(t.shape) != want:
+        want = wants[_SHAPES[name]]
+        if t.shape != want:
             raise ValueError(f"shape mismatch: {name} is {tuple(t.shape)}, want {want} "
                              f"for Y {tuple(Y.shape)}, idx {tuple(idx.shape)}")
     if scales is not None and tuple(scales.shape) != (Y.shape[0],):
         raise ValueError(f"shape mismatch: scales is {tuple(scales.shape)}, want ({Y.shape[0]},)")
-    if F > MAX_FACTORS:
+    if max_factors is not None and F > max_factors:
         raise NotImplementedError(
-            f"the CUDA solve kernels take factors <= {MAX_FACTORS}, got {F}")
+            f"the CUDA solve kernels cg_full and gramian_cg take factors <= {max_factors}, "
+            f"got {F}; wider fits solve through the composed CG on weighted_matvec")
     if dev.type != "cuda":
         raise ValueError(f"the solve kernels run on CUDA tensors, got {dev}")
     return C, L, F
 
 
-def _launch(kernel, Y, idx, scales, args):
-    """Launches ``<kernel>_<variant>`` on Y's device and current stream.
+def _run(library, entry, device, args):
+    """Calls the C entry point ``entry`` of ``library`` on ``device`` and its
+    current stream: tensors pass as pointers, Python numbers as they are.
+    Raises on a launch error, else counts the launch."""
+    lib = _build.load(library)[library]
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    # the C side launches on the current device; switching costs host time
+    # that a short launch would wait for, so only where it must
+    index = device.index
+    switch = (contextlib.nullcontext() if index == torch.cuda.current_device()
+              else torch.cuda.device(index))
+    with switch:
+        rc = getattr(lib, entry)(*ptrs, torch._C._cuda_getCurrentRawStream(index))
+    _build.check(lib, rc, f"{entry} launch")
+    LAUNCHES[entry] += 1
 
-    ``args`` follow the table (and its scales) in the C signature: tensors
-    pass as pointers, Python numbers as they are. Returns the C call's
-    result after counting the launch.
-    """
+
+def _launch(kernel, Y, idx, scales, args):
+    """Launches ``<kernel>_<variant>`` for the table ``Y`` (and its scales);
+    ``args`` follow the table and idx in the C signature."""
     variant = "i8" if scales is not None else ("bf16" if Y.dtype == torch.bfloat16 else "f32")
-    lib = _build.load(kernel)[kernel]
     # the kernels read float32 scales; a bfloat16 scale converts exactly
     table = (Y,) if scales is None else (Y, scales.float())
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in (*table, idx, *args)]
-    with torch.cuda.device(Y.device):  # the C side launches on the current device
-        stream = torch.cuda.current_stream(Y.device).cuda_stream
-        rc = getattr(lib, f"{kernel}_{variant}")(*ptrs, stream)
-    _build.check(lib, rc, f"{kernel}_{variant} launch")
-    LAUNCHES[f"{kernel}_{variant}"] += 1
+    _run(kernel, f"{kernel}_{variant}", Y.device, (*table, idx, *args))
 
 
 def cg_solve_full(Y, idx, dat, x0, YtY_reg, cg_steps=3, scales=None):
@@ -328,17 +348,118 @@ def gramian_cg_solve(Y, idx, dat, x0, YtY_reg, cg_steps=3, scales=None):
     return out
 
 
+# weighted_matvec's L-slice count per (device, table type, 16-byte aligned
+# table, C, L, F): a fit's chunks repeat a few shapes, and the count costs a
+# call into the library
+_WMV_SLICES = {}
+
+
 def weighted_matvec(Y, idx, w, bv, v, alpha, beta, scales=None):
     """sum_l (alpha * bv + beta * w * (y_l . v)) * y_l per row, y_l = Y[idx];
-    returns (C, F) float32.
+    returns (C, F) float32. Any F.
 
-    CUDA tensors launch ``csrc/weighted_matvec.cu``; CPU tensors take the
-    plain version.
+    CUDA tensors launch ``csrc/weighted_matvec.cu``, with a (C, S, F)
+    float32 scratch of per-slice partial sums where the kernel cuts each row
+    into S > 1 L-slices (few long rows); CPU tensors take the plain version.
     """
     if Y.device.type == "cpu":
         return weighted_matvec_plain(Y, idx, w, bv, v, alpha, beta, scales)
-    C, L, F = _check_args(Y, idx, scales, w=w, bv=bv, v=v)
+    C, L, F = _check_args(Y, idx, scales, max_factors=None, w=w, bv=bv, v=v)
+    table = 2 if scales is not None else (1 if Y.dtype == torch.bfloat16 else 0)
+    key = (Y.device, table, Y.data_ptr() % 16 == 0, C, L, F)
+    slices = _WMV_SLICES.get(key)
+    if slices is None:
+        lib = _build.load("weighted_matvec")["weighted_matvec"]
+        with torch.cuda.device(Y.device):  # the slice count depends on the device's SMs
+            slices = _WMV_SLICES[key] = lib.weighted_matvec_slices(table, Y.data_ptr(), C, L, F)
     out = torch.empty_like(v)
+    part = (torch.empty((C, slices, F), dtype=torch.float32, device=Y.device)
+            if slices > 1 else None)
     _launch("weighted_matvec", Y, idx, scales,
-            (w, bv, v, out, C, L, F, float(alpha), float(beta)))
+            (w, bv, v, out, part, C, L, F, slices, float(alpha), float(beta)))
     return out
+
+
+def cg_update_plain(s, YtY_reg, v, x, r, p, rs, act, first):
+    """Plain PyTorch version of :func:`cg_update` (same arguments, in place):
+    the steps of ``ops/als.py:_masked_cg``."""
+    from .als import _cg_step
+
+    with full_f32_matmul():
+        t = s - v @ YtY_reg if first else s + p @ YtY_reg
+    if first:
+        x.copy_(v)
+        r.copy_(t)
+        p.copy_(t)
+        rs.copy_((t * t).sum(1))
+        act.copy_(rs >= 1e-20)
+        return
+    for buf, new in zip((x, r, p, rs, act), _cg_step(x, r, p, rs, act.bool(), t)):
+        buf.copy_(new)
+
+
+def _check_update_args(YtY_reg, rs, act, **rows):
+    """Raises on any argument ``cg_update`` does not take; returns (C, F)."""
+    C, F = rows["v"].shape if rows["v"].dim() == 2 else (-1, -1)
+    want = {"YtY_reg": (F, F), "rs": (C,), "act": (C,), **{k: (C, F) for k in rows}}
+    tensors = dict(YtY_reg=YtY_reg, rs=rs, act=act, **rows)
+    for name, t in tensors.items():
+        dtype = torch.int32 if name == "act" else torch.float32
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"shape mismatch: {name} is {tuple(t.shape)}, want {want[name]}")
+        if t.device != YtY_reg.device:
+            raise ValueError(f"{name} is on {t.device}, YtY_reg on {YtY_reg.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if YtY_reg.device.type != "cuda":
+        raise ValueError(f"cg_update runs on CUDA tensors, got {YtY_reg.device}")
+    return C, F
+
+
+def cg_update(s, YtY_reg, v, x, r, p, rs, act, first):
+    """One CG pass's dense term and masked update over a chunk's rows, in
+    place. ``s`` (C, F) is the pass's sparse term from :func:`weighted_matvec`.
+
+    ``first``: the residual pass from ``v`` = x0: r = s - x0 YtY_reg, x =
+    x0, p = r, rs = r . r, act = rs >= 1e-20. Else a masked CG step from
+    ``v`` = p (the same tensor): Ap = s + p YtY_reg, then x, r, p, rs and act
+    as ``ops/als.py:_masked_cg`` updates them. ``s`` is not written.
+    float32 tensors but ``act`` (C,) int32; ``rs`` (C,).
+
+    CUDA tensors launch ``csrc/cg_update.cu``, with a (C, F) float32
+    scratch for the product allocated here; CPU tensors take the plain
+    version.
+    """
+    if s.device.type == "cpu":
+        return cg_update_plain(s, YtY_reg, v, x, r, p, rs, act, first)
+    C, F = _check_update_args(YtY_reg, rs, act, v=v, s=s, x=x, r=r, p=p)
+    _run("cg_update", "cg_update", s.device,
+         (YtY_reg, v, s, torch.empty_like(s), x, r, p, rs, act, C, F, int(bool(first))))
+
+
+def cg_solve_wide(Y, idx, dat, x0, YtY_reg, cg_steps=3, scales=None):
+    """Warm-started masked CG solve of one chunk at any F; returns (C, F)
+    float32 x, as :func:`cg_solve_full` (same arguments).
+
+    Each pass is two kernels: :func:`weighted_matvec` for the sparse term
+    and :func:`cg_update` for the dense term and the update, cg_steps + 1
+    launches of each. CPU tensors take both plain versions, the arithmetic
+    of :func:`cg_solve_full_plain`.
+    """
+    from .als import _weights
+
+    w, bv = _weights(dat)
+    if scales is not None:
+        scales = scales.float()  # once, not in every pass
+    C = x0.shape[0]
+    x, r, p = (torch.empty_like(x0) for _ in range(3))
+    rs = torch.empty(C, dtype=torch.float32, device=x0.device)
+    act = torch.empty(C, dtype=torch.int32, device=x0.device)
+    s = weighted_matvec(Y, idx, w, bv, x0, 1.0, -1.0, scales=scales)
+    cg_update(s, YtY_reg, x0, x, r, p, rs, act, True)
+    for _ in range(cg_steps):
+        s = weighted_matvec(Y, idx, w, bv, p, 0.0, 1.0, scales=scales)
+        cg_update(s, YtY_reg, p, x, r, p, rs, act, False)
+    return x

@@ -1,5 +1,5 @@
-// Shared pieces of the ALS solve kernels (cg_full.cu, gramian_cg.cu,
-// weighted_matvec.cu).
+// Shared pieces of the ALS solve kernels (cg_full.cu, gramian_cg.cu; the
+// row loaders also weighted_matvec.cu).
 //
 // One warp owns one row of the solve. A factor vector of width F <= 256 is
 // held in registers, VPT = ceil(F / 32) values per lane, in a strided layout:
@@ -20,7 +20,7 @@ namespace als {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kFreeze = 1e-20f;  // rows freeze once rs < this
-constexpr int kUnroll = 4;         // row entries in flight per warp in sparse_term
+constexpr int kUnroll = 4;         // row entries in flight per warp (cg_full at VPT = 8)
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -74,35 +74,15 @@ struct QuantRows {
   }
 };
 
-// Entry readers: how a row's (w, bv) weights are stored, given as up to two
-// float arrays E0, E1 of the row. load(E0, E1, l) is what one lane loads for
-// entry l and the warp broadcasts, in its raw form (one float where it can,
-// to keep registers free); live(raw) says whether the entry can contribute
-// and weights(raw) gives (w, bv). DatEntries reads the raw confidence d
-// (E0 = dat): w = |d| - 1 and bv = max(d, 0) where d != 0, both 0 for
-// padding. WeightEntries reads w and bv themselves (E0 = w, E1 = bv).
+// A row entry's raw confidence d as the solve's weights: w = |d| - 1 and
+// bv = max(d, 0) where d != 0, both 0 for padding; live(d) says whether the
+// entry can contribute.
 struct DatEntries {
-  __device__ __forceinline__ static float load(const float* d, const float*, int l) {
-    return d[l];
-  }
   __device__ __forceinline__ static bool live(float x) { return x != 0.f; }
   __device__ __forceinline__ static float2 weights(float x) {
     return make_float2(x != 0.f ? fabsf(x) - 1.f : 0.f, fmaxf(x, 0.f));
   }
 };
-
-struct WeightEntries {
-  __device__ __forceinline__ static float2 load(const float* w, const float* bv, int l) {
-    return make_float2(w[l], bv[l]);
-  }
-  __device__ __forceinline__ static bool live(float2 v) { return v.x != 0.f || v.y != 0.f; }
-  __device__ __forceinline__ static float2 weights(float2 v) { return v; }
-};
-
-__device__ __forceinline__ float shfl(float v, int src) { return __shfl_sync(kFull, v, src); }
-__device__ __forceinline__ float2 shfl(float2 v, int src) {
-  return make_float2(__shfl_sync(kFull, v.x, src), __shfl_sync(kFull, v.y, src));
-}
 
 template <int VPT>
 __device__ __forceinline__ float dot(const float (&a)[VPT], const float (&b)[VPT]) {
@@ -127,72 +107,6 @@ __device__ __forceinline__ void store_row(float* dst, const float (&v)[VPT], int
   for (int k = 0; k < VPT; ++k) {
     const int f = k * 32 + lane;
     if (f < F) dst[f] = v[k];
-  }
-}
-
-// acc = sum_{l < L} (alpha * bv_l + beta * w_l * (y_l . v)) * y_l over one
-// row, with y_l = row ci[l] of the table: the body of the TPU kernel
-// _weighted_matvec_kernel (implicit_tpu/ops/pallas_ops.py:46) for one row.
-// (alpha, beta) = (1, -1) is the sparse part of the CG residual b - A x and
-// (0, 1) that of A p. An entry that is not live (padding) has coefficient
-// 0 and is skipped. The warp loads 32 entries (index and raw weights) at a
-// time, one per lane, and broadcasts them by shuffles; kUnroll entries are
-// in flight at once. The loop ends at L exactly, for any L.
-template <int VPT, class Rows, class Entries>
-__device__ __forceinline__ void sparse_term(const typename Rows::Elem* __restrict__ Y,
-                                            const float* __restrict__ S,
-                                            const float* __restrict__ E0,
-                                            const float* __restrict__ E1,
-                                            const int* __restrict__ ci, int L, int F,
-                                            int lane, float alpha, float beta,
-                                            const float (&v)[VPT], float (&acc)[VPT]) {
-#pragma unroll
-  for (int k = 0; k < VPT; ++k) acc[k] = 0.f;
-  for (int l0 = 0; l0 < L; l0 += 32) {
-    const int n = min(32, L - l0);
-    using Raw = decltype(Entries::load(E0, E1, 0));
-    const Raw raw = lane < n ? Entries::load(E0, E1, l0 + lane) : Raw{};
-    const int il = lane < n ? ci[l0 + lane] : 0;
-    for (int j = 0; j < n; j += kUnroll) {
-      Raw e[kUnroll];
-      int i[kUnroll];
-      bool any = false;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        e[u] = shfl(raw, (j + u) & 31);
-        i[u] = __shfl_sync(kFull, il, (j + u) & 31);
-        if (j + u >= n) e[u] = Raw{};
-        any |= Entries::live(e[u]);
-      }
-      if (!any) continue;  // warp-uniform: every lane holds the same entries
-      float y[kUnroll][VPT];
-      float t[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const typename Rows::Elem* yr = Y + (size_t)i[u] * F;
-        const float sc = Rows::scale(S, i[u]);
-        const bool live = Entries::live(e[u]);
-        t[u] = 0.f;
-#pragma unroll
-        for (int k = 0; k < VPT; ++k) {
-          const int f = k * 32 + lane;
-          y[u][k] = (live && f < F) ? Rows::at(yr, sc, f) : 0.f;
-          t[u] += y[u][k] * v[k];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) t[u] = warp_sum(t[u]);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const float2 wb = Entries::weights(e[u]);  // (w, bv)
-        // alpha == 0 (the A p pass) drops the bv term outright: neither
-        // 0 * bv nor 0 + x folds away in IEEE arithmetic
-        const float wt = beta * (wb.x * t[u]);
-        const float coeff = alpha != 0.f ? alpha * wb.y + wt : wt;
-#pragma unroll
-        for (int k = 0; k < VPT; ++k) acc[k] += coeff * y[u][k];
-      }
-    }
   }
 }
 

@@ -194,7 +194,7 @@ __device__ __forceinline__ void smem_load(const float* row, float (&v)[VPT], int
 }
 
 // acc = sum_l (alpha * bv_l + beta * w_l * (y_l . v)) * y_l over one row in
-// the contiguous layout: sparse_term (cg_common.cuh) with vector row loads.
+// the contiguous layout, with vector row loads.
 template <class Rows, int VPT, int W>
 __device__ __forceinline__ void row_sparse(const typename Rows::Elem* __restrict__ Y,
                                            const float* __restrict__ S,

@@ -16,6 +16,8 @@ whose score matrix fits a memory budget.
 import numpy as np
 import torch
 
+from .._device import full_f32_matmul
+
 NEG_MAX = -float(np.finfo(np.float32).max)
 
 # score-matrix elements per query chunk on the CPU (256 MB of float32)
@@ -53,7 +55,8 @@ def _topk_core(items, queries, norms, qf_rows, qf_cols, filter_items, k):
     item ids to exclude for every query, or None. Ids outside [0, N) are
     ignored. Returns (scores, ids) of shape (Q, k).
     """
-    scores = queries.float() @ items.T
+    with full_f32_matmul():  # the JAX package's HIGHEST-precision scores
+        scores = queries.float() @ items.T
     if norms is not None:
         scores = scores / norms[None, :]
     if filter_items is not None:

@@ -13,6 +13,8 @@ to 1e-4 too: kernel and plain version dequantize to the same bfloat16
 values and both accumulate in float32.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -163,20 +165,19 @@ def test_gramian_split_rows_match_plain(cuda, F, variant):
 
 
 @pytest.mark.parametrize("C,L", [(64, 4096), (8, 65536)])
-def test_gramian_f32_is_not_tf32(cuda, C, L):
+def test_gramian_f32_is_not_tf32(cuda, monkeypatch, C, L):
     # single-pass TF32 would pass the 1e-4 bar; the float32 build (3xTF32)
     # must land at least 10x closer to the float32 plain version than the
-    # plain version computed in TF32 does
+    # plain version computed in TF32 does (its per-product full-float32 pin
+    # lifted, TF32 on)
     Y, idx, dat, x0, yty = _case(C, L, 128, seed=C, device=cuda, dtype=torch.float32,
                                  n_table=20000)
     got = cg_kernels.gramian_cg_solve(Y, idx, dat, x0, yty, cg_steps=3)
     want = cg_kernels.gramian_cg_solve_plain(Y, idx, dat, x0, yty, cg_steps=3)
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
+    with monkeypatch.context() as m:
+        m.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+        m.setattr(cg_kernels, "full_f32_matmul", contextlib.nullcontext)
         tf32 = cg_kernels.gramian_cg_solve_plain(Y, idx, dat, x0, yty, cg_steps=3)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
     err = float((got - want).abs().max())
     tf32_err = float((tf32 - want).abs().max())
     assert tf32_err > 0
@@ -216,9 +217,12 @@ def test_gramian_padding_skip(cuda, variant):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
 
 
+# F = 10 and (int8) 1000: rows of no whole number of 16-byte pieces, loaded
+# element by element; 320 / 512: the wide fits' widths, held in registers;
+# 1000, 2000: the two-sweep kernel of rows wider than 512 values
 @pytest.mark.parametrize("alpha,beta", [(1.0, -1.0), (0.0, 1.0)])
 @pytest.mark.parametrize("variant", ["f32", "bf16", "i8"])
-@pytest.mark.parametrize("F", [8, 32, 100, 128, 256])
+@pytest.mark.parametrize("F", [8, 10, 32, 100, 128, 256, 320, 512, 1000, 2000])
 def test_weighted_matvec_matches_plain(cuda, F, variant, alpha, beta):
     C, L = 37, 83  # L not a multiple of 32: the row loop ends mid-group
     Y, idx, dat, x0, _ = _case(C, L, F, seed=F + 2, device=cuda, dtype=torch.float32)
@@ -236,6 +240,175 @@ def test_weighted_matvec_matches_plain(cuda, F, variant, alpha, beta):
     want = cg_kernels.weighted_matvec_plain(Y, idx, w, bv, v, alpha, beta, scales=scales)
     tol = 2e-3 if variant == "bf16" else 1e-4
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+
+
+def _wmv_inputs(C, L, F, variant, seed, device, n_table=5000):
+    """weighted_matvec's inputs (table, scales, idx, w, bv, v) for a chunk of
+    C rows of L entries with padding tails."""
+    Y, idx, dat, x0, _ = _case(C, L, F, seed=seed, device=device, dtype=torch.float32,
+                               n_table=n_table)
+    w, bv = _weights(dat)
+    Y, scales = _table(Y, variant)
+    return Y, scales, idx, w, bv, x0 * 10
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16", "i8"])
+@pytest.mark.parametrize("F", [128, 320, 512, 1000])
+def test_weighted_matvec_long_rows_are_deterministic(cuda, F, variant):
+    """The head class's shape: C = 8 rows, each cut into many L-slices whose
+    partial sums add in slice order; against the plain version, and twice
+    for the same bits."""
+    Y, scales, idx, w, bv, v = _wmv_inputs(8, 20000, F, variant, seed=F, device=cuda)
+    for alpha, beta in ((1.0, -1.0), (0.0, 1.0)):
+        runs = [cg_kernels.weighted_matvec(Y, idx, w, bv, v, alpha, beta, scales=scales)
+                for _ in range(2)]
+        assert torch.equal(runs[0], runs[1])
+        want = cg_kernels.weighted_matvec_plain(Y, idx, w, bv, v, alpha, beta, scales=scales)
+        tol = 2e-3 if variant == "bf16" else 1e-4
+        np.testing.assert_allclose(runs[0].cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+
+
+def test_weighted_matvec_edge_shapes(cuda):
+    """No rows, no entries, all-padding rows, and one live entry per row at
+    the end of a long row: each row's sum is exactly what the plain version
+    gives (zeros where nothing is live)."""
+    Y, scales, idx, w, bv, v = _wmv_inputs(5, 3000, 320, "f32", seed=1, device=cuda)
+    w[:, :-1] = 0.0
+    bv[:, :-1] = 0.0
+    w[2] = bv[2] = 0.0
+    got = cg_kernels.weighted_matvec(Y, idx, w, bv, v, 1.0, -1.0)
+    want = cg_kernels.weighted_matvec_plain(Y, idx, w, bv, v, 1.0, -1.0)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    assert not got[2].any()
+    empty = cg_kernels.weighted_matvec(Y, idx[:0], w[:0], bv[:0], v[:0], 1.0, -1.0)
+    assert empty.shape == (0, 320)
+    none = cg_kernels.weighted_matvec(Y, idx[:, :0].contiguous(), w[:, :0].contiguous(),
+                                      bv[:, :0].contiguous(), v, 1.0, -1.0)
+    assert not none.any()
+
+
+def _update_state(C, F, device, seed):
+    """YtY_reg, a warm start x0 and a PSD matrix B standing in for the
+    sparse term, for cg_update; rows 0 and 1 start at their solution (x0 = 0
+    and a zero sparse term), so they never move."""
+    rng = np.random.default_rng(seed)
+    Ys, Zs = (rng.standard_normal((64, F), dtype=np.float32) * 0.1 for _ in range(2))
+    yty = torch.as_tensor(Ys.T @ Ys + 0.05 * np.eye(F, dtype=np.float32), device=device)
+    x0 = torch.as_tensor(rng.standard_normal((C, F), dtype=np.float32) * 0.1, device=device)
+    x0[:2] = 0.0
+    return rng, yty, x0, torch.as_tensor(Zs.T @ Zs, device=device)
+
+
+def _update_pass(update, b, B, yty, x0, state, first):
+    """One pass of ``update`` (the kernel or its plain version) on a copy of
+    ``state`` (x, r, p, rs, act). The sparse term is ``b`` on the first pass
+    and p B on a step, so that A = B + YtY_reg is positive definite."""
+    x, r, p, rs, act = (t.clone() for t in state)
+    with cg_kernels.full_f32_matmul():
+        s = b.clone() if first else p @ B
+    update(s, yty, x0 if first else p, x, r, p, rs, act, first)
+    torch.cuda.synchronize()
+    return x, r, p, rs, act
+
+
+# F = 8 and 100: less than one 256-column panel, and no multiple of 32
+# k-values; 320, 512: the wide fits; 1000: four panels, the last partial
+@pytest.mark.parametrize("F", [8, 100, 320, 512, 1000])
+def test_cg_update_matches_plain(cuda, F):
+    """The residual pass and three CG steps, kernel and plain version each
+    from the plain version's last state, C = 37 rows (a partial block of
+    32): every output (x, r, p, rs) within 1e-4 and the active flags equal
+    after each pass, and the kernel twice from one state gives the same
+    bits."""
+    C = 37
+    rng, yty, x0, B = _update_state(C, F, cuda, seed=F)
+    b = torch.as_tensor(rng.standard_normal((C, F), dtype=np.float32), device=cuda)
+    b[:2] = 0.0
+    state = [torch.zeros_like(x0) for _ in range(3)] + [
+        torch.zeros(C, device=cuda), torch.zeros(C, dtype=torch.int32, device=cuda)]
+    for step in range(4):
+        before = cg_kernels.LAUNCHES["cg_update"]
+        out = {name: _update_pass(update, b, B, yty, x0, state, step == 0)
+               for name, update in (("kernel", cg_kernels.cg_update),
+                                    ("plain", cg_kernels.cg_update_plain))}
+        again = _update_pass(cg_kernels.cg_update, b, B, yty, x0, state, step == 0)
+        assert cg_kernels.LAUNCHES["cg_update"] == before + 2
+        for got, rerun, want in zip(out["kernel"], again, out["plain"]):
+            assert torch.equal(got, rerun)
+            if got.dtype == torch.int32:
+                assert torch.equal(got, want)
+            else:
+                np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                                           atol=1e-4)
+        assert not out["kernel"][0][:2].any() and not out["kernel"][4][:2].any()
+        assert out["kernel"][4][2:].all()  # every other row still active
+        state = out["plain"]
+
+
+@pytest.mark.parametrize("F", [320, 512])
+def test_cg_update_is_not_tf32(cuda, monkeypatch, F):
+    """The dense term is float32, not single-pass TF32 (which the 1e-4 bar
+    would pass): a CG step lands at least 10x closer to the float32 plain
+    version than the plain version computed in TF32 does (its per-product
+    full-float32 pin lifted)."""
+    C = 256
+    rng, yty, x0, B = _update_state(C, F, cuda, seed=F + 1)
+    b = torch.as_tensor(rng.standard_normal((C, F), dtype=np.float32), device=cuda)
+    state = [torch.zeros_like(x0) for _ in range(3)] + [
+        torch.zeros(C, device=cuda), torch.zeros(C, dtype=torch.int32, device=cuda)]
+    state = _update_pass(cg_kernels.cg_update_plain, b, B, yty, x0, state, True)
+    with cg_kernels.full_f32_matmul():
+        s = state[2] @ B
+
+    def step(update):
+        x, r, p, rs, act = (t.clone() for t in state)
+        update(s, yty, p, x, r, p, rs, act, False)
+        return torch.cat([x, r, p], 1)
+
+    got, want = step(cg_kernels.cg_update), step(cg_kernels.cg_update_plain)
+    with monkeypatch.context() as m:
+        m.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+        m.setattr(cg_kernels, "full_f32_matmul", contextlib.nullcontext)
+        tf32 = step(cg_kernels.cg_update_plain)
+    err = float((got - want).abs().max())
+    tf32_err = float((tf32 - want).abs().max())
+    assert tf32_err > 0
+    assert err <= 0.1 * tf32_err, (err, tf32_err)
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16", "i8"])
+def test_cg_solve_wide_freezing_rows_match_plain(cuda, variant):
+    """cg_kernels.freeze_case at F = 320: rows freezing at different CG
+    steps in one chunk. The solve on the two kernels matches the plain
+    version, and a row frozen at step s keeps that step's x bit for bit."""
+    Y, idx, dat, x0, yty, steps = cg_kernels.freeze_case(101, 64, 320, seed=5,
+                                                         seen=_seen_rows(variant))
+    Y, idx, dat, x0, yty = (torch.as_tensor(a, device=cuda) for a in (Y, idx, dat, x0, yty))
+    Y, scales = _table(Y, variant)
+    xs = [cg_kernels.cg_solve_wide(Y, idx, dat, x0, yty, s, scales=scales) for s in range(4)]
+    want = cg_kernels.cg_solve_full_plain(Y, idx, dat, x0, yty, 3, scales=scales)
+    tol = 2e-3 if variant == "bf16" else 1e-4
+    np.testing.assert_allclose(xs[3].cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+    for s in range(4):
+        rows = torch.as_tensor(steps == s, device=cuda)
+        assert torch.equal(xs[s][rows], xs[3][rows])
+
+
+def test_cg_update_refuses_what_it_does_not_take(cuda):
+    _, yty, x0, _ = _update_state(8, 16, cuda, seed=0)
+    x, r, p, s = (torch.zeros_like(x0) for _ in range(4))
+    rs = torch.zeros(8, device=cuda)
+    act = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        cg_kernels.cg_update(s, yty, x0, x, r, p, rs, act.float(), True)
+    with pytest.raises(TypeError):
+        cg_kernels.cg_update(s.double(), yty, x0, x, r, p, rs, act, True)
+    with pytest.raises(ValueError, match="shape"):
+        cg_kernels.cg_update(s, yty[:8].contiguous(), x0, x, r, p, rs, act, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        cg_kernels.cg_update(s, yty.T, x0, x, r, p, rs, act, True)
+    with pytest.raises(ValueError):
+        cg_kernels.cg_update(s, yty, x0, x.cpu(), r, p, rs, act, True)
 
 
 @pytest.mark.parametrize("name", sorted(KERNELS))
@@ -276,3 +449,58 @@ def test_fit_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(factors["cuda"], factors["cpu"], rtol=1e-3, atol=1e-4)
     diff = np.linalg.norm(factors["cuda"] - factors["cpu"])
     assert diff <= 1e-3 * np.linalg.norm(factors["cpu"])
+
+
+def test_wide_fit_on_cuda_matches_cpu(cuda):
+    """factors=320, past what cg_full and gramian_cg take: every class of the
+    fit solves in the composed CG on weighted_matvec, on the card as on the
+    CPU (where the wrapper takes the plain version), to the same bar as the
+    factors=32 fit above. The fit starts from seeded factors of mixed sign:
+    from the model's all-positive random start, whose gramian is nearly rank
+    one, 3-step float32 CG grows summation order on a few rows past 1e-4
+    (an H100 run: 111 of 224,000 item factors, up to 3.4e-4), kernel or not."""
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+
+    plays = generate_synthetic(2000, 700, 60000, seed=3)
+    rng = np.random.default_rng(5)
+    start = [rng.standard_normal((n, 320), dtype=np.float32) * 0.1 for n in plays.shape]
+    factors = {}
+    for dev in ("cpu", cuda):
+        model = AlternatingLeastSquares(factors=320, iterations=1, random_state=0, device=dev)
+        model.user_factors, model.item_factors = (f.copy() for f in start)
+        cg_kernels.reset_launches()
+        model.fit(plays, show_progress=False)
+        factors[str(dev)] = model.item_factors
+    launched = {k: v for k, v in cg_kernels.LAUNCHES.items() if v}
+    assert set(launched) == {"weighted_matvec_f32", "cg_update"}
+    assert launched["weighted_matvec_f32"] == launched["cg_update"]
+    np.testing.assert_allclose(factors["cuda"], factors["cpu"], rtol=1e-3, atol=1e-4)
+    diff = np.linalg.norm(factors["cuda"] - factors["cpu"])
+    assert diff <= 1e-3 * np.linalg.norm(factors["cpu"])
+
+
+@pytest.mark.parametrize("factors", [128, 320])
+def test_tf32_does_not_move_fit_or_recommend(cuda, monkeypatch, factors):
+    """The port pins full float32 around its own products: with TF32 turned
+    on by the caller, a float32 fit and recommend give the same bits as with
+    it off, and the caller's setting stays on."""
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+
+    plays = generate_synthetic(2000, 700, 60000, seed=4)
+    users = np.arange(64)
+
+    def run():
+        model = AlternatingLeastSquares(factors=factors, iterations=2, random_state=0,
+                                        device=cuda)
+        model.fit(plays, show_progress=False)
+        ids, scores = model.recommend(users, plays[users], N=10)
+        return model.user_factors, model.item_factors, ids, scores
+
+    off = run()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    on = run()
+    assert torch.backends.cuda.matmul.allow_tf32
+    for a, b in zip(off, on):
+        np.testing.assert_array_equal(a, b)
