@@ -34,10 +34,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    launches are short (``weighted_matvec``, ``cg_update``) also give the
    device time of the same launches replayed from a CUDA graph
    (``cuda_graph_ms``) beside it;
-3. the main paths, each with the launch counters set to 0 just before it
-   and read just after, which must show every routed chunk:
-   ``AlternatingLeastSquares.fit`` at the last.fm-360k shape (360k users x
-   160k items, 17.5M nnz) at factors=128 in float32, bfloat16 and bfloat16
+3. the ingest at the last.fm-360k shape (360k users x 160k items, 17.5M
+   nnz): ``pack_pair_on_device``'s device pack against its host pack, as
+   the f=128 float32 fit packs, on the pow2 and fine grids, every tensor
+   equal and one altered entry rejected, with both routes' times; then the
+   main paths, each with the launch counters set to 0 just before it and
+   read just after, which must show every routed chunk, and each fit's
+   set-up (wall minus the iterations) split by step from the port's debug
+   lines: ``AlternatingLeastSquares.fit`` at that shape at factors=128 in
+   float32 (and again with ``ingest="host"``, which must give the same
+   factors bit for bit), bfloat16 and bfloat16
    with ``gather_quant=True``; at factors=256 with ``gather_quant="auto"``
    (int8 on the item side only) and ``False``; the wide fits, factors=512
    bfloat16 and factors=320 float32 (2 iterations), whose every class solves
@@ -57,6 +63,7 @@ Imports nothing of JAX.
 """
 
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -626,32 +633,126 @@ def nonzero(counts):
     return {k: v for k, v in counts.items() if v}
 
 
-def fit_path(tag, plays, device, factors, dtype, gather_quant, iterations=3):
-    """One fit at the full shape, its launches read against the chunks routed."""
+class SetupSplit(logging.Handler):
+    """Collects a fit's set-up steps, (step, seconds) in order, from the
+    port's debug lines ``"fit set-up %s in %.4f s"``
+    (``implicit_tpu_torch._device.timed_step``, which synchronizes the card
+    around each step while debug logging is on)."""
+
+    def __init__(self):
+        super().__init__(logging.DEBUG)
+        self.steps = []
+
+    def emit(self, record):
+        if record.msg.startswith("fit set-up"):
+            self.steps.append(record.args)
+
+
+def fit_path(tag, plays, device, factors, dtype, gather_quant, iterations=3, ingest="auto"):
+    """One fit at the full shape, its launches read against the chunks
+    routed, and its set-up (fit wall minus the iterations) split by step."""
     from implicit_tpu_torch.als import AlternatingLeastSquares
     from implicit_tpu_torch.ops import cg_kernels
 
     model = AlternatingLeastSquares(factors=factors, iterations=iterations, random_state=0,
-                                    dtype=dtype, gather_quant=gather_quant, device=device)
+                                    dtype=dtype, gather_quant=gather_quant, ingest=ingest,
+                                    device=device)
     sides = model._gather_quant_sides(*plays.shape)
     want = expected_launches(plays, factors, model._compute_dtype, iterations, sides,
                              cg_steps=model.cg_steps)
     times = []
-    cg_kernels.reset_launches()
-    t0 = time.perf_counter()
-    model.fit(plays, show_progress=False,
-              callback=lambda it, elapsed, loss: times.append(elapsed))
-    wall = time.perf_counter() - t0
-    launches = dict(cg_kernels.LAUNCHES)
+    log, split = logging.getLogger("implicit_tpu_torch"), SetupSplit()
+    level = log.level
+    log.addHandler(split)
+    log.setLevel(logging.DEBUG)
+    try:
+        cg_kernels.reset_launches()
+        t0 = time.perf_counter()
+        model.fit(plays, show_progress=False,
+                  callback=lambda it, elapsed, loss: times.append(elapsed))
+        wall = time.perf_counter() - t0
+        launches = dict(cg_kernels.LAUNCHES)
+    finally:
+        log.removeHandler(split)
+        log.setLevel(level)
     for f in (model.user_factors, model.item_factors):
         if not np.isfinite(np.asarray(f, dtype=np.float32)).all():
             raise AssertionError(f"fit {tag}: non-finite factors")
+    setup = wall - sum(times)
     say(3, f"fit {tag}: gather_quant={gather_quant!r} -> (user, item) sides {sides}; "
-           f"s/iter {[round(t, 4) for t in times]} (fit wall incl. host packing {wall:.2f} s)")
+           f"s/iter {[round(t, 4) for t in times]} (fit wall {wall:.3f} s, set-up {setup:.3f} s)")
+    say(3, f"fit {tag}: set-up {setup:.4f} s = fit wall {wall:.4f} - iterations "
+           f"{sum(times):.4f}; split (ingest={ingest}, s): "
+           + ", ".join(f"{step} {secs:.4f}" for step, secs in split.steps)
+           + f"; steps sum {sum(secs for _, secs in split.steps):.4f}")
     say(3, f"fit {tag}: launches {nonzero(launches)}, chunks routed {nonzero(want)}")
     if launches != want:
         raise AssertionError(f"fit {tag}: launches {launches} != chunks routed {want}")
     return model, sides, times, launches
+
+
+def pack_differences(got, want):
+    """What differs between two (user, item) DeviceBuckets pairs: plans,
+    empty rows, and every class tensor (``torch.equal`` and the dtype)."""
+    import torch
+
+    out = []
+    for side, g, w in zip(("user", "item"), got, want):
+        if (g.shape, g.nnz, g.sentinel) != (w.shape, w.nnz, w.sentinel):
+            out.append(f"{side} shape, nnz or sentinel")
+        if (g.empty_rows is None) != (w.empty_rows is None) or (
+                g.empty_rows is not None and not torch.equal(g.empty_rows, w.empty_rows)):
+            out.append(f"{side} empty rows")
+        if [(c.L, c.C, c.n_chunks, c.n_valid) for c in g.classes] != \
+                [(c.L, c.C, c.n_chunks, c.n_valid) for c in w.classes]:
+            out.append(f"{side} class layout")
+            continue
+        for gc, wc in zip(g.classes, w.classes):
+            for name in ("rows", "indices", "data", "lengths"):
+                a, b = getattr(gc, name), getattr(wc, name)
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    out.append(f"{side} L={gc.L} C={gc.C} {name}")
+    return out
+
+
+def ingest_check(plays, device):
+    """The device pack against the host pack at the full shape, as the
+    f=128 float32 fit packs (``pack_pair_on_device``), on the pow2 and fine
+    grids: every tensor equal, with each route's time (the device route
+    twice, its first call first); a copy of the device pack with one entry
+    of the item side's longest class altered must be told apart."""
+    import torch
+
+    from implicit_tpu_torch.sparse import als_chunk_target, pack_pair_on_device
+
+    Cui = plays.astype(np.float32)
+    kw = dict(target_entries=als_chunk_target(128, "float32"), max_chunk_rows=65536,
+              data_dtype=np.float32, device=device)
+    for grid in ("pow2", "fine"):
+        secs, packs = {}, {}
+        for mode in ("device", "host", "device"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            packs[mode] = pack_pair_on_device(Cui, grid=grid, mode=mode, **kw)
+            torch.cuda.synchronize()
+            secs.setdefault(mode, []).append(time.perf_counter() - t0)
+        differ = pack_differences(packs["device"], packs["host"])
+        if differ:
+            raise AssertionError(f"ingest {grid}: the device pack differs from the host pack: "
+                                 f"{differ[:8]}")
+        head = packs["device"][1].classes[-1]
+        head.data[0, 0, 0] += 1.0
+        altered = pack_differences(packs["device"], packs["host"])
+        if altered != [f"item L={head.L} C={head.C} data"]:
+            raise AssertionError(f"ingest {grid}: one altered entry gave {altered}")
+        entries = [sum(c.n_chunks * c.C * c.L for c in side.classes) for side in packs["host"]]
+        say(3, f"ingest {grid} grid: device pack == host pack, every tensor of "
+               f"{sum(len(side.classes) for side in packs['host'])} classes (user/item padded "
+               f"entries {entries[0]}/{entries[1]}); an altered entry is rejected ({altered[0]}); "
+               f"device {', '.join(f'{t:.4f}' for t in secs['device'])} s, host "
+               f"{secs['host'][0]:.4f} s")
+        del packs, head
+        torch.cuda.empty_cache()
 
 
 def composed_cg_path(plays, device):
@@ -755,8 +856,19 @@ def phase_main_path(device):
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
 
+    ingest_check(plays, device)
     f32, _, _, launches = fit_path("f=128 float32", plays, device, 128, np.float32, False)
     add(launches)
+    # the same fit packed on the host: the packed tensors, so the factors, the same
+    host, _, _, launches = fit_path("f=128 float32 ingest=host", plays, device, 128,
+                                    np.float32, False, ingest="host")
+    add(launches)
+    if not all(np.array_equal(a, b) for a, b in ((f32.user_factors, host.user_factors),
+                                                 (f32.item_factors, host.item_factors))):
+        raise AssertionError('fit f=128 float32: ingest="host" factors differ from the '
+                             'device-packed fit\'s')
+    say(3, 'fit f=128 float32: ingest="host" gives the device-packed fit\'s factors, bit for bit')
+    del host
     _, _, _, launches = fit_path("f=128 bfloat16", plays, device, 128, np.float16, False)
     add(launches)
     quant, _, _, launches = fit_path("f=128 bfloat16 int8", plays, device, 128, np.float16, True)

@@ -1,9 +1,14 @@
-"""Device resolution (an explicit ``torch.device``, never a silent fallback)
-and the float32 matmul precision of the port's products."""
+"""Device resolution (an explicit ``torch.device``, never a silent fallback),
+the float32 matmul precision of the port's products, and the timing of the
+fit's set-up steps."""
 
 import contextlib
+import logging
+import time
 
 import torch
+
+log = logging.getLogger("implicit_tpu_torch")
 
 
 def resolve_device(device):
@@ -62,3 +67,24 @@ def full_f32_matmul():
         yield
     finally:
         torch.set_float32_matmul_precision(saved)
+
+
+@contextlib.contextmanager
+def timed_step(step, device):
+    """Logs the block's seconds at debug level as ``"fit set-up %s in %.4f
+    s"`` (args: the step's name, the seconds).
+
+    With debug logging on, a CUDA ``device`` is synchronized before the
+    clock starts and before it stops, so each step counts the device work it
+    queued and none of the steps before; that gives up the overlap of host
+    and device work across steps. With it off, the block runs untimed.
+    """
+    if not log.isEnabledFor(logging.DEBUG):
+        yield
+        return
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda device: None)
+    sync(device)
+    start = time.perf_counter()
+    yield
+    sync(device)
+    log.debug("fit set-up %s in %.4f s", step, time.perf_counter() - start)

@@ -17,8 +17,9 @@ import scipy.sparse
 import torch
 from tqdm.auto import tqdm
 
+from .._device import timed_step
 from ..ops import als as als_ops
-from ..sparse import BucketedCSR, als_chunk_target
+from ..sparse import BucketedCSR, als_chunk_target, pack_pair_on_device
 from ..utils import check_csr, check_random_state
 from .mf_base import MatrixFactorizationBase
 
@@ -35,6 +36,11 @@ def _drop_stored_zeros(csr):
         csr = csr.copy()
         csr.eliminate_zeros()
     return csr
+
+
+def _as_torch_dtype(dtype):
+    """The torch dtype of a numpy dtype."""
+    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
 
 
 class AlternatingLeastSquares(MatrixFactorizationBase):
@@ -76,7 +82,12 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
     grid : {"auto", "pow2", "fine"}, optional
         Row-length bucketing grid; "auto" means "pow2".
     ingest : {"auto", "host", "device"}, optional
-        Accepted for API parity; interactions are always packed on the host.
+        Where the interactions are packed into the solves' bucketed tensors
+        (:func:`~implicit_tpu_torch.sparse.pack_pair_on_device`): "device"
+        uploads the raw CSR arrays once and transposes and packs on the
+        device; "host" transposes and packs on the host and uploads the
+        padded tensors; "auto" is "device" on a CUDA device and "host" on
+        the CPU. The packed tensors, and so the fit, are the same either way.
     gather_quant : {False, True, "auto"}, optional
         Solve against an int8 per-row-scaled copy of the fixed-side factor
         table, dequantized inside the CUDA kernels (to bfloat16, as the JAX
@@ -176,43 +187,28 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
         random_state = check_random_state(self.random_state)
         solve_np = np.float64 if self._compute_dtype == "float64" else np.float32
 
-        Cui = check_csr(user_items)
-        if Cui.dtype != solve_np:
-            Cui = Cui.astype(solve_np)
-        Cui = _drop_stored_zeros(Cui)
-        if self.alpha != 1.0:
-            Cui = self.alpha * Cui
-
-        s = time.time()
-        Ciu = Cui.T.tocsr()
-        log.debug("Calculated transpose in %.3fs", time.time() - s)
+        with timed_step("prepare", self.device):
+            Cui = check_csr(user_items)
+            if Cui.dtype != solve_np:
+                Cui = Cui.astype(solve_np)
+            Cui = _drop_stored_zeros(Cui)
+            if self.alpha != 1.0:
+                Cui = self.alpha * Cui
 
         users, items = Cui.shape
-        if self.user_factors is None:
-            self.user_factors = (
-                random_state.random((users, self.factors), dtype=np.float32) * 0.01
-            ).astype(self.dtype)
-        if self.item_factors is None:
-            self.item_factors = (
-                random_state.random((items, self.factors), dtype=np.float32) * 0.01
-            ).astype(self.dtype)
+        target = als_chunk_target(self.factors, self._compute_dtype)
+        grid = "pow2" if self.grid == "auto" else self.grid
+        user_buckets, item_buckets = pack_pair_on_device(
+            Cui, target_entries=target, max_chunk_rows=65536, grid=grid, data_dtype=solve_np,
+            mode=self.ingest, device=self.device)
+        # user table first: the JAX package's stream
+        X = self._initial_factors(self.user_factors, users, random_state)
+        Y = self._initial_factors(self.item_factors, items, random_state)
 
         self._item_norms = self._user_norms = None
         self._YtY = None
         self._XtX = None
         loss = None
-
-        s = time.time()
-        target = als_chunk_target(self.factors, self._compute_dtype)
-        grid = "pow2" if self.grid == "auto" else self.grid
-        user_buckets = BucketedCSR(Cui, target_entries=target, max_chunk_rows=65536,
-                                   grid=grid, data_dtype=solve_np).to_device(self.device)
-        item_buckets = BucketedCSR(Ciu, target_entries=target, max_chunk_rows=65536,
-                                   grid=grid, data_dtype=solve_np).to_device(self.device)
-        # copies: the solves update X and Y in place
-        X = torch.tensor(np.asarray(self.user_factors, dtype=solve_np), device=self.device)
-        Y = torch.tensor(np.asarray(self.item_factors, dtype=solve_np), device=self.device)
-        log.debug("Bucketed CSR built + uploaded in %.3fs", time.time() - s)
 
         if not callback:
             callback = self.fit_callback
@@ -240,13 +236,31 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
                 if callback:
                     callback(iteration, time.time() - s, loss)
 
-        self.user_factors = X.cpu().numpy().astype(self.dtype)
-        self.item_factors = Y.cpu().numpy().astype(self.dtype)
+        with timed_step("copy back", self.device):
+            storage = _as_torch_dtype(self.dtype)
+            user_factors, item_factors = (T.to(storage).cpu().numpy() for T in (X, Y))
+        self.user_factors, self.item_factors = user_factors, item_factors
 
         if self.calculate_training_loss:
             log.info("Final training loss %.4f", loss)
 
-        self._check_fit_errors()
+        self._check_factors(X, Y)
+
+    def _initial_factors(self, factors, n, random_state):
+        """The fit's starting (n, factors) table on the device, in the solve
+        dtype: a copy of ``factors`` where the model has them (the solves
+        update it in place), else the JAX package's start, numpy's float32
+        draw times 0.01 rounded to the storage dtype, with the scaling and
+        both casts on the device (the same bits as numpy's)."""
+        solve = torch.float64 if self._compute_dtype == "float64" else torch.float32
+        if factors is not None:
+            with timed_step("factor copy", self.device):
+                return torch.tensor(np.asarray(factors), device=self.device).to(solve)
+        with timed_step("factor draw", self.device):
+            draw = random_state.random((n, self.factors), dtype=np.float32)
+        with timed_step("factor init", self.device):
+            return (torch.as_tensor(draw, device=self.device) * 0.01).to(
+                _as_torch_dtype(self.dtype)).to(solve)
 
     def _solve_rows(self, row_items, other_factors, gram):
         """Dense normal-equation solves for the rows of ``row_items``."""

@@ -319,6 +319,3 @@ class MatrixFactorizationBase(RecommenderBase):
     def to_cpu(self):
         """API parity with the reference's GPU->CPU conversion: the identity."""
         return self
-
-    def _check_fit_errors(self):
-        self._check_factors(self.user_factors, self.item_factors)

@@ -10,6 +10,7 @@ import warnings
 from abc import ABCMeta, abstractmethod
 
 import numpy as np
+import torch
 
 
 class ModelFitError(Exception):
@@ -150,7 +151,7 @@ class RecommenderBase(metaclass=ABCMeta):
 
     @staticmethod
     def _check_factors(user_factors, item_factors):
-        is_nan = np.any(np.isnan(user_factors), axis=None)
-        is_nan |= np.any(np.isnan(item_factors), axis=None)
-        if is_nan:
+        """Raises ModelFitError if either factor tensor holds a NaN; checked
+        where the fit solved them (a cast to the storage dtype keeps NaN)."""
+        if bool(torch.isnan(user_factors).any() | torch.isnan(item_factors).any()):
             raise ModelFitError("NaN encountered in factors")

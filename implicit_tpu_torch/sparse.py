@@ -1,7 +1,7 @@
 """Bucketed, padded CSR tensors — the sparse substrate of the ALS solves.
 
-The counterpart of ``implicit_tpu/sparse.py`` (host packing only). The
-matrix is re-packed once, on the host, into a few fixed-shape dense tensors:
+The counterpart of ``implicit_tpu/sparse.py``. The matrix is re-packed once
+per fit into a few fixed-shape dense tensors:
 
 - rows are grouped into length classes ``L`` (>= 8) by their nnz;
 - each class is split into chunks of ``C`` rows (C*L roughly constant);
@@ -10,11 +10,16 @@ matrix is re-packed once, on the host, into a few fixed-shape dense tensors:
   index 0 / value 0.
 
 Padding entries carry confidence 0 and contribute nothing to the solves.
-:meth:`BucketedCSR.to_device` uploads the tensors once per fit.
+Two routes give the same tensors (:func:`pack_pair_on_device`): the host
+packs both sides (:class:`BucketedCSR`, then :meth:`BucketedCSR.to_device`
+uploads them), or the device packs them from one upload of the raw CSR
+arrays, deriving the transposed side itself.
 """
 
 import numpy as np
 import torch
+
+from ._device import resolve_device, timed_step
 
 
 def length_class_grid(nnz_per_row, min_L=8, grid="fine"):
@@ -72,8 +77,8 @@ class BucketClass:
         self.C = C
         self.n_chunks = rows.shape[0]
         self.rows = rows  # (n, C) int32, padded with sentinel (= n_rows)
-        self.indices = indices  # (n, C, L) int32, padded with 0
-        self.data = data  # (n, C, L) float, padded with 0
+        self.indices = indices  # (n, C, L) int32, padded with 0; None in a plan
+        self.data = data  # (n, C, L) float, padded with 0; None in a plan
         self.lengths = lengths  # (n, C) int32 actual nnz per row
 
 
@@ -87,30 +92,51 @@ class BucketedCSR:
         Rough upper bound on C*L per chunk.
     max_chunk_rows : int
         Upper bound on rows per chunk.
+    metadata_only : bool
+        Build the plan only (each class's ``rows`` and ``lengths``); the
+        entry tensors stay None until :meth:`fill`, or are packed on the
+        device (:func:`pack_pair_on_device`).
     """
 
     def __init__(self, csr, target_entries=1 << 23, max_chunk_rows=32768, min_L=8,
-                 data_dtype=np.float32, grid="fine"):
-        n_rows = csr.shape[0]
+                 data_dtype=np.float32, grid="fine", metadata_only=False):
+        indptr = np.asarray(csr.indptr)
+        indices = np.asarray(csr.indices)
+        first_cols = indices[np.minimum(indptr[:-1], len(indices) - 1)] if len(indices) else \
+            np.zeros(csr.shape[0], dtype=np.int32)
+        self._plan(csr.shape, indptr, first_cols, target_entries, max_chunk_rows, min_L,
+                   data_dtype, grid)
+        if not metadata_only:
+            self.fill(csr)
+
+    @classmethod
+    def from_indptr(cls, shape, indptr, first_cols, target_entries=1 << 23,
+                    max_chunk_rows=32768, min_L=8, data_dtype=np.float32, grid="fine"):
+        """The ``metadata_only`` plan of a CSR matrix of ``shape`` from its
+        ``indptr`` and each row's first stored column (``first_cols[r]`` is
+        read only where row r has entries): what the device pack needs of
+        the transposed side, without a host copy of its entries."""
+        plan = cls.__new__(cls)
+        plan._plan(shape, np.asarray(indptr), np.asarray(first_cols), target_entries,
+                   max_chunk_rows, min_L, data_dtype, grid)
+        return plan
+
+    def _plan(self, shape, indptr, first_cols, target_entries, max_chunk_rows, min_L,
+              data_dtype, grid):
+        n_rows = shape[0]
         self.data_dtype = np.dtype(data_dtype)
-        self.shape = csr.shape
+        self.shape = tuple(int(s) for s in shape)
         self.n_rows = n_rows
-        self.nnz = csr.nnz
+        self.nnz = int(indptr[-1])
         self.sentinel = n_rows
 
-        indptr = np.asarray(csr.indptr)
         nnz_per_row = np.diff(indptr).astype(np.int64)
         self.empty_rows = np.where(nnz_per_row == 0)[0].astype(np.int32)
-
-        csr_indices = np.asarray(csr.indices, dtype=np.int32)
-        csr_data = np.asarray(csr.data, dtype=self.data_dtype)
 
         nonempty = np.where(nnz_per_row > 0)[0]
         self.classes = []
         if len(nonempty) == 0:
             return
-
-        from . import native
 
         L_per_row = length_class_grid(nnz_per_row[nonempty], min_L, grid)
         for L in np.unique(L_per_row):
@@ -118,41 +144,46 @@ class BucketedCSR:
             sel = nonempty[L_per_row == L]
             # order rows by their first column id: consecutive rows then
             # gather nearby factor rows
-            sel = sel[np.argsort(csr_indices[indptr[sel]], kind="stable")]
+            sel = sel[np.argsort(first_cols[sel], kind="stable")]
             lens = nnz_per_row[sel].astype(np.int32)
-            count = len(sel)
-
-            packed_idx, packed_dat = native.pack_ragged(
-                indptr, csr_indices, csr_data, sel.astype(np.int32), L,
-                dtype=self.data_dtype,
-            )
             for start, stop, n_chunks, piece_C in chunk_pieces(
-                    count, L, target_entries, max_chunk_rows):
-                piece_count = stop - start
+                    len(sel), L, target_entries, max_chunk_rows):
                 padded_rows = n_chunks * piece_C
                 rows = np.full(padded_rows, self.sentinel, dtype=np.int32)
-                rows[:piece_count] = sel[start:stop]
+                rows[:stop - start] = sel[start:stop]
                 lengths = np.zeros(padded_rows, dtype=np.int32)
-                lengths[:piece_count] = lens[start:stop]
-                if padded_rows > piece_count:
-                    idx = np.zeros((padded_rows, L), dtype=np.int32)
-                    dat = np.zeros((padded_rows, L), dtype=self.data_dtype)
-                    idx[:piece_count] = packed_idx[start:stop]
-                    dat[:piece_count] = packed_dat[start:stop]
-                else:
-                    idx = packed_idx[start:stop]
-                    dat = packed_dat[start:stop]
+                lengths[:stop - start] = lens[start:stop]
                 self.classes.append(BucketClass(
-                    L, piece_C,
-                    rows.reshape(n_chunks, piece_C),
-                    idx.reshape(n_chunks, piece_C, L),
-                    dat.reshape(n_chunks, piece_C, L),
-                    lengths.reshape(n_chunks, piece_C),
-                ))
+                    L, piece_C, rows.reshape(n_chunks, piece_C), None, None,
+                    lengths.reshape(n_chunks, piece_C)))
 
     @property
     def padded_entries(self):
         return sum(c.n_chunks * c.C * c.L for c in self.classes)
+
+    def fill(self, csr):
+        """Packs the padded entry tensors of a plan on the host (the native
+        packer); ``csr`` must be the matrix the plan was built from."""
+        from . import native
+
+        indptr = np.asarray(csr.indptr)
+        csr_indices = np.asarray(csr.indices, dtype=np.int32)
+        csr_data = np.asarray(csr.data, dtype=self.data_dtype)
+        for cls in self.classes:
+            rows = cls.rows.reshape(-1)
+            sel = rows[rows != self.sentinel]
+            packed_idx, packed_dat = native.pack_ragged(
+                indptr, csr_indices, csr_data, sel, cls.L, dtype=self.data_dtype)
+            if len(rows) > len(sel):
+                idx = np.zeros((len(rows), cls.L), dtype=np.int32)
+                dat = np.zeros((len(rows), cls.L), dtype=self.data_dtype)
+                idx[:len(sel)] = packed_idx
+                dat[:len(sel)] = packed_dat
+            else:
+                idx, dat = packed_idx, packed_dat
+            cls.indices = idx.reshape(cls.n_chunks, cls.C, cls.L)
+            cls.data = dat.reshape(cls.n_chunks, cls.C, cls.L)
+        return self
 
     def to_device(self, device):
         """Uploads the chunk tensors to ``device`` once (see DeviceBuckets)."""
@@ -160,7 +191,13 @@ class BucketedCSR:
 
 
 class DeviceBuckets:
-    """Device-resident mirror of a BucketedCSR on an explicit device."""
+    """Device-resident mirror of a BucketedCSR on an explicit device.
+
+    The plan's row ids, lengths and empty rows go up in one copy: a blocking
+    copy to a CUDA device waits for the work queued there, so one copy per
+    side lets the device pack queue all of its gathers behind it. A plan's
+    entry tensors (None) stay None until :func:`_pack_side` gathers them.
+    """
 
     def __init__(self, bucketed, device):
         self.device = torch.device(device)
@@ -168,12 +205,15 @@ class DeviceBuckets:
         self.n_rows = bucketed.n_rows
         self.nnz = bucketed.nnz
         self.sentinel = bucketed.sentinel
-        self.empty_rows = (
-            torch.as_tensor(bucketed.empty_rows, dtype=torch.int64, device=self.device)
-            if len(bucketed.empty_rows) else None
-        )
-        self.classes = [DeviceBucketClass(cls, self.device, bucketed.sentinel)
-                        for cls in bucketed.classes]
+        classes = bucketed.classes
+        arrays = [bucketed.empty_rows] + [c.rows for c in classes] + [c.lengths for c in classes]
+        flat = torch.as_tensor(np.concatenate([a.ravel() for a in arrays]).astype(np.int64),
+                               device=self.device)
+        empty, *parts = (t.view(a.shape) for t, a in
+                         zip(flat.split([a.size for a in arrays]), arrays))
+        self.empty_rows = empty if len(empty) else None
+        self.classes = [DeviceBucketClass(cls, bucketed.sentinel, rows, lengths, self.device)
+                        for cls, rows, lengths in zip(classes, parts, parts[len(classes):])]
 
 
 class DeviceBucketClass:
@@ -185,12 +225,110 @@ class DeviceBucketClass:
 
     __slots__ = ("L", "C", "n_chunks", "rows", "indices", "data", "lengths", "n_valid")
 
-    def __init__(self, cls, device, sentinel):
+    def __init__(self, cls, sentinel, rows, lengths, device):
         self.L = cls.L
         self.C = cls.C
         self.n_chunks = cls.n_chunks
         self.n_valid = [int(n) for n in (cls.rows != sentinel).sum(axis=1)]
-        self.rows = torch.as_tensor(cls.rows, dtype=torch.int64, device=device)
-        self.indices = torch.as_tensor(cls.indices, device=device)
-        self.data = torch.as_tensor(cls.data, device=device)
-        self.lengths = torch.as_tensor(cls.lengths, device=device)
+        self.rows = rows  # int64
+        self.lengths = lengths.to(torch.int32)
+        self.indices = None if cls.indices is None else torch.as_tensor(cls.indices,
+                                                                       device=device)
+        self.data = None if cls.data is None else torch.as_tensor(cls.data, device=device)
+
+
+def _transpose(cols, data, indptr, n_cols):
+    """The transposed matrix's flat (indices, data) and indptr, on the
+    device of the inputs, without a sync.
+
+    A stable sort by column keeps each column's entries in row-major order,
+    so rows come out ascending within a column, duplicates and unsorted input
+    rows included: exactly ``Cui.T.tocsr()``'s layout.
+    """
+    counts = indptr[1:] - indptr[:-1]
+    rows = torch.repeat_interleave(
+        torch.arange(len(counts), dtype=torch.int32, device=cols.device), counts,
+        output_size=len(cols))
+    sorted_cols, order = torch.sort(cols, stable=True)
+    # searchsorted, not bincount: bincount on CUDA syncs to find its length
+    t_indptr = torch.searchsorted(
+        sorted_cols, torch.arange(n_cols + 1, dtype=cols.dtype, device=cols.device))
+    return rows[order], data[order], t_indptr
+
+
+def _pack_side(plan, flat_indices, flat_data, indptr, device):
+    """DeviceBuckets for one side from its flat CSR arrays on the device:
+    each class's padded (n, C, L) entries gathered at ``indptr[row] + l``,
+    zero where ``l`` is past the row's length. Positions are int64, so any
+    nnz packs (the JAX package addresses in int32 and host-packs past
+    2**31 entries)."""
+    buckets = DeviceBuckets(plan, device)
+    for cls in buckets.classes:
+        # sentinel rows (= n_rows) read indptr's last entry and mask out
+        # through their length 0
+        arange = torch.arange(cls.L, device=device)
+        valid = arange[None, :] < cls.lengths.reshape(-1, 1)
+        pos = torch.where(valid, indptr[cls.rows.reshape(-1)][:, None] + arange[None, :], 0)
+        shape = (cls.n_chunks, cls.C, cls.L)
+        cls.indices = flat_indices[pos].masked_fill_(~valid, 0).reshape(shape)
+        cls.data = flat_data[pos].masked_fill_(~valid, 0).reshape(shape)
+    return buckets
+
+
+def pack_pair_on_device(Cui, Ciu=None, target_entries=1 << 23, max_chunk_rows=32768,
+                        grid="fine", data_dtype=np.float32, mode="auto", device="cuda"):
+    """Both training sides (user side of ``Cui``, item side of its
+    transpose) as DeviceBuckets on ``device``.
+
+    ``mode="device"`` uploads ``Cui``'s raw ``indices``, ``data`` and
+    ``indptr`` once, derives the item side's flat arrays on the device (COO
+    row ids by ``repeat_interleave``, a stable sort by column) and gathers
+    every padded class tensor there; the host builds only the two plans, the
+    item plan from the item ``indptr`` and each item's first user, copied
+    back once. ``Ciu`` (``Cui.T.tocsr()``), if given, is read only for its
+    plan. ``mode="host"`` packs both sides on the host
+    (``BucketedCSR(...).to_device``), transposing ``Cui`` there when ``Ciu``
+    is None. ``"auto"`` takes the device pack on a CUDA device and the host
+    pack on the CPU: nothing is compiled here, so the JAX package's route
+    by compile warmth has no counterpart. The tensors are identical either
+    way, and a failure of the device route raises; it never packs on the
+    host instead.
+    """
+    if mode not in ("auto", "host", "device"):
+        raise ValueError(f"mode must be 'auto', 'host' or 'device', got {mode!r}")
+    device = resolve_device(device)
+    kw = dict(target_entries=target_entries, max_chunk_rows=max_chunk_rows, grid=grid,
+              data_dtype=data_dtype)
+    if mode == "host" or (mode == "auto" and device.type != "cuda"):
+        if Ciu is None:
+            with timed_step("transpose", device):
+                Ciu = Cui.T.tocsr()
+        out = []
+        for side, csr in (("user", Cui), ("item", Ciu)):
+            with timed_step(f"pack {side} side", device):
+                out.append(BucketedCSR(csr, **kw).to_device(device))
+        return tuple(out)
+
+    n_rows, n_cols = Cui.shape
+    with timed_step("upload", device):
+        cols = torch.as_tensor(np.asarray(Cui.indices, dtype=np.int32), device=device)
+        data = torch.as_tensor(np.asarray(Cui.data, dtype=data_dtype), device=device)
+        indptr = torch.as_tensor(np.asarray(Cui.indptr, dtype=np.int64), device=device)
+    with timed_step("transpose", device):
+        t_indices, t_data, t_indptr = _transpose(cols, data, indptr, n_cols)
+    with timed_step("plan user side", device):
+        plan_u = BucketedCSR(Cui, metadata_only=True, **kw)
+    with timed_step("plan item side", device):
+        if Ciu is not None:
+            plan_i = BucketedCSR(Ciu, metadata_only=True, **kw)
+        else:
+            first = (t_indices[t_indptr[:-1].clamp(max=len(t_indices) - 1)] if len(t_indices)
+                     else torch.zeros(n_cols, dtype=torch.int32, device=device))
+            meta = torch.cat([t_indptr, first.long()]).cpu().numpy()  # the one copy back
+            plan_i = BucketedCSR.from_indptr((n_cols, n_rows), meta[:n_cols + 1],
+                                             meta[n_cols + 1:], **kw)
+    with timed_step("pack user side", device):
+        user = _pack_side(plan_u, cols, data, indptr, device)
+    with timed_step("pack item side", device):
+        item = _pack_side(plan_i, t_indices, t_data, t_indptr, device)
+    return user, item

@@ -21,7 +21,7 @@ smoke() {  # tree tag
   local r=$?
   [ $r -eq 0 ] || rc=1
   echo "== chip_smoke $2: exit $r"
-  grep -E "^\[phase (1|2)\]|s/iter|p@10" "$out/smoke_$2.log" | cut -c1-400
+  grep -E "^\[phase (1|2)\]|s/iter|set-up|ingest|p@10" "$out/smoke_$2.log" | cut -c1-600
 }
 smoke "$parent" parent1
 smoke "$here" change1

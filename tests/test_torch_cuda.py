@@ -504,3 +504,68 @@ def test_tf32_does_not_move_fit_or_recommend(cuda, monkeypatch, factors):
     assert torch.backends.cuda.matmul.allow_tf32
     for a, b in zip(off, on):
         np.testing.assert_array_equal(a, b)
+
+
+def _shuffled_rows(m, seed):
+    """``m`` with every row's entries stored in a shuffled order."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    order = np.concatenate([lo + rng.permutation(hi - lo)
+                            for lo, hi in zip(m.indptr[:-1], m.indptr[1:])])
+    return sp.csr_matrix((m.data[order], m.indices[order], m.indptr.copy()), shape=m.shape)
+
+
+@pytest.mark.parametrize("grid", ["pow2", "fine"])
+def test_device_pack_on_cuda_matches_host_pack(cuda, monkeypatch, grid):
+    """The device pack on the card ("device", and "auto", which takes it on
+    CUDA) gives the host pack's tensors, each equal with its dtype, on rows
+    stored out of column order."""
+    from implicit_tpu_torch import sparse
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+
+    plays = _shuffled_rows(generate_synthetic(2000, 700, 60000, seed=3).astype(np.float32), 1)
+    kw = dict(target_entries=1 << 14, max_chunk_rows=512, grid=grid, device=cuda)
+    calls = []
+    real = sparse._pack_side
+    monkeypatch.setattr(sparse, "_pack_side", lambda *a: calls.append(1) or real(*a))
+    host = sparse.pack_pair_on_device(plays, mode="host", **kw)
+    assert calls == []
+    for mode in ("device", "auto"):
+        got = sparse.pack_pair_on_device(plays, mode=mode, **kw)
+        for g, h in zip(got, host):
+            assert (g.shape, g.nnz, g.sentinel) == (h.shape, h.nnz, h.sentinel)
+            assert (g.empty_rows is None) == (h.empty_rows is None)
+            if h.empty_rows is not None:
+                assert torch.equal(g.empty_rows, h.empty_rows)
+            assert [(c.L, c.C, c.n_chunks, c.n_valid) for c in g.classes] == \
+                [(c.L, c.C, c.n_chunks, c.n_valid) for c in h.classes]
+            for gc, hc in zip(g.classes, h.classes):
+                for name in ("rows", "indices", "data", "lengths"):
+                    a, b = getattr(gc, name), getattr(hc, name)
+                    assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b), name
+    assert len(calls) == 4
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_fit_with_device_ingest_equals_host_ingest_on_cuda(cuda, dtype):
+    """factors=32 fits that pack on the card and on the host give the same
+    bits, and a fit of no iterations returns numpy's start (float32 draw
+    times 0.01, cast to the storage dtype), scaled and cast on the card."""
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+
+    plays = generate_synthetic(2000, 700, 60000, seed=3)
+    fits = {}
+    for ingest, iterations in (("device", 2), ("host", 2), ("device", 0)):
+        model = AlternatingLeastSquares(factors=32, iterations=iterations, random_state=0,
+                                        dtype=dtype, ingest=ingest, device=cuda)
+        model.fit(plays, show_progress=False)
+        fits[ingest, iterations] = (model.user_factors, model.item_factors)
+    for a, b in zip(fits["device", 2], fits["host", 2]):
+        assert a.dtype == dtype
+        np.testing.assert_array_equal(a, b)
+    rng = np.random.default_rng(0)
+    for got, n in zip(fits["device", 0], plays.shape):
+        want = (rng.random((n, 32), dtype=np.float32) * 0.01).astype(dtype)
+        np.testing.assert_array_equal(got, want)
