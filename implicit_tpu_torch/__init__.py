@@ -2,9 +2,9 @@
 
 Collaborative filtering for implicit feedback on one NVIDIA H100: an
 implicit-ALS fit whose per-row conjugate-gradient solves run in hand-written
-CUDA kernels (``ops/csrc``), followed by batched top-k serving. The package
-mirrors ``implicit_tpu``'s module layout and public surface; it imports
-``torch`` and never ``jax``.
+CUDA kernels (``ops/csrc``), the SGD families BPR and LMF as torch ops, and
+batched top-k serving. The package mirrors ``implicit_tpu``'s module layout
+and public surface; it imports ``torch`` and never ``jax``.
 
 Models take ``device=`` (default ``"cuda"``); asking for CUDA where there is
 none raises instead of falling back to the CPU. Importing the package sets
@@ -12,8 +12,8 @@ no global torch flag: the port's float32 products pin full float32 each
 (``_device.full_f32_matmul``).
 """
 
-from . import als
+from . import als, bpr, lmf
 
 __version__ = "0.1.0"
 
-__all__ = ["als", "__version__"]
+__all__ = ["als", "bpr", "lmf", "__version__"]

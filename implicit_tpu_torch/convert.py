@@ -1,28 +1,37 @@
-"""Carry ALS weights between the JAX package and the port.
+"""Carry ALS, BPR and LMF weights between the JAX package and the port.
 
-Both packages save the same npz keys (factors, hyper-parameters), so a
-file written by ``implicit_tpu``'s ``save`` loads with
-``AlternatingLeastSquares.load``. These helpers do the same for in-memory
-parameters: :func:`numpy_params` gives a model's factors and
-hyper-parameters as a dict of numpy values, and :func:`als_from_numpy` builds
-a port model from such a dict (for example one read from a JAX model's
-attributes or from its npz).
+Both packages save the same npz keys (factors, hyper-parameters) per model
+family, so a file written by ``implicit_tpu``'s ``save`` loads with the
+port's ``load``, and the other way round. These helpers do the same for
+in-memory parameters: :func:`numpy_params` gives a model's factors and
+hyper-parameters as a dict of numpy values, and :func:`als_from_numpy`,
+:func:`bpr_from_numpy` and :func:`lmf_from_numpy` build a port model from
+such a dict (for example one read from a JAX model's attributes or from
+its npz).
 """
 
 import numpy as np
 
 from .models.als import AlternatingLeastSquares
+from .models.bpr import BayesianPersonalizedRanking
+from .models.lmf import LogisticMatrixFactorization
 
-# the npz layout both packages save (implicit_tpu/models/als.py:save)
+# the npz layout both packages save (implicit_tpu/models/als.py:save); the
+# BPR and LMF layouts are their classes' SAVE_KEYS
 PARAM_KEYS = AlternatingLeastSquares.SAVE_KEYS
+
+# by class name, which the two packages share
+_KEYS = {cls.__name__: cls.SAVE_KEYS for cls in (
+    AlternatingLeastSquares, BayesianPersonalizedRanking, LogisticMatrixFactorization)}
 
 
 def numpy_params(model):
     """The model's save() contents as a dict (absent values left out).
 
-    ``model`` may be either package's ALS model; factors are copied.
+    ``model`` may be either package's ALS, BPR or LMF model; factors are
+    copied.
     """
-    params = {k: getattr(model, k, None) for k in PARAM_KEYS}
+    params = {k: getattr(model, k, None) for k in _KEYS[type(model).__name__]}
     params["dtype"] = np.dtype(model.dtype).name
     for key in ("user_factors", "item_factors"):
         if params[key] is not None:
@@ -30,12 +39,8 @@ def numpy_params(model):
     return {k: v for k, v in params.items() if v is not None}
 
 
-def als_from_numpy(params, device="cuda"):
-    """A port AlternatingLeastSquares on ``device`` holding ``params``.
-
-    ``params`` maps the npz keys to values; factors are copied.
-    """
-    model = AlternatingLeastSquares(device=device)
+def _from_numpy(cls, params, device):
+    model = cls(device=device)
     for key, value in params.items():
         if key == "dtype":
             value = np.dtype(str(value))
@@ -45,3 +50,23 @@ def als_from_numpy(params, device="cuda"):
             value = value.item()
         setattr(model, key, value)
     return model
+
+
+def als_from_numpy(params, device="cuda"):
+    """A port AlternatingLeastSquares on ``device`` holding ``params``.
+
+    ``params`` maps the npz keys to values; factors are copied.
+    """
+    return _from_numpy(AlternatingLeastSquares, params, device)
+
+
+def bpr_from_numpy(params, device="cuda"):
+    """A port BayesianPersonalizedRanking on ``device`` holding ``params``
+    (the factors+1 layout, the user bias column pinned to 1)."""
+    return _from_numpy(BayesianPersonalizedRanking, params, device)
+
+
+def lmf_from_numpy(params, device="cuda"):
+    """A port LogisticMatrixFactorization on ``device`` holding ``params``
+    (the factors+2 layout)."""
+    return _from_numpy(LogisticMatrixFactorization, params, device)

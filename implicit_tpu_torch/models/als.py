@@ -391,15 +391,6 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
         "dtype", "random_state", "alpha",
     )
 
-    def save_params(self):
-        """What :meth:`save` writes, as a dict (values that are None left out)."""
-        args = {k: getattr(self, k, None) for k in self.SAVE_KEYS}
-        args["dtype"] = self.dtype.name
-        return {k: v for k, v in args.items() if v is not None}
-
-    def save(self, fileobj_or_path):
-        np.savez(fileobj_or_path, **self.save_params())
-
 
 def _user_row(Cui, u):
     """One CSR row of Cui as (item indices, A-weights |c|-1, b-values c^+)."""

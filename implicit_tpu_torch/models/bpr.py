@@ -1,0 +1,413 @@
+"""Bayesian Personalized Ranking on one device.
+
+The counterpart of ``implicit_tpu/models/bpr.py``: pairwise sigmoid ranking
+SGD over (user, liked, disliked) triples, with an extra trailing column on
+the factors holding the item bias (the matching user column is pinned to
+1.0). As in the JAX package, training is synchronous minibatch SGD with a
+deterministic schedule, in one of two epochs:
+
+- grouped (the default): every positive once per epoch, streamed out of
+  the padded chunks of a :class:`~implicit_tpu_torch.sparse.BucketedCSR`
+  (``_bpr_epoch_grouped``);
+- sampled: nnz uniform positives with replacement, in minibatches
+  (``_bpr_epoch``).
+
+Both draw each negative from the interaction multiset (the exact popularity
+draw) and skip negatives the user liked, checked against the cuckoo pair
+table of :mod:`~implicit_tpu_torch.ops.membership` or, where none fits, by
+bisection over the CSR row.
+
+Draws: each step's index draws come from a draw function on the model's
+``torch.Generator`` (``_sample_draws``, ``_group_draws``), apart from the
+update, so the epochs can be fed any draws (the tests feed the JAX
+package's).
+
+Accumulation: rows that collide within a step sum their updates in an
+order fixed by the inputs (``_scatter_add``), so two fits with the same
+``random_state`` give the same bits. Each device needs its own op for that:
+on CUDA ``index_put_(accumulate=True)`` sorts the indices and sums each
+row's updates in order, where ``index_add_`` adds them with atomics; on the
+CPU ``index_add_`` adds the updates one by one in order, where
+``index_put_(accumulate=True)`` adds them with atomics from several threads.
+"""
+
+import logging
+import time
+
+import numpy as np
+import torch
+from tqdm.auto import tqdm
+
+from .._device import full_f32_matmul, timed_step
+from ..ops import membership
+from ..sparse import BucketedCSR
+from ..utils import check_csr, check_random_state
+from .mf_base import MatrixFactorizationBase
+
+log = logging.getLogger("implicit_tpu_torch")
+
+# minibatch cap of the sampled epoch (the JAX package's): fewer, bigger
+# steps train faster, while batches past this size slow convergence per
+# sample (more collisions on hot rows within a batch)
+_MAX_BATCH = 65536
+
+# epoch_mode values: 0 sampled, 1 grouped; the JAX package's pool modes
+# (2, 3) are measured dead ends there and are not ported (ROADMAP A6)
+_EPOCH_MODES = {None: 1, "sampled": 0, "grouped": 1, 0: 0, 1: 1}
+_UNPORTED_MODES = ("grouped_pool", "grouped_pool_ids", 2, 3)
+
+
+def _scatter_add(table, idx, values):
+    """``table[idx] += values`` in place, rows that repeat in ``idx``
+    summed in an order fixed by the inputs (the same bits every run)."""
+    if table.is_cuda:
+        table.index_put_((idx,), values, accumulate=True)
+    else:
+        table.index_add_(0, idx, values)
+
+
+def _segment_member(indptr, indices, u, col, n_iters):
+    """Vectorized binary search: is ``col`` present in CSR row ``u``?
+
+    ``n_iters`` must be >= ceil(log2(max_row_length)) + 1. A row id past the
+    last row (a chunk's sentinel) reads ``indptr``'s last entry as its end,
+    as the JAX package's clamped gather does.
+    """
+    n = indices.shape[0]
+    end = indptr[(u + 1).clamp(max=indptr.shape[0] - 1)]
+    lo, hi = indptr[u.clamp(max=indptr.shape[0] - 1)], end
+    for _ in range(n_iters):
+        mid = (lo + hi) // 2
+        go_right = indices[mid.clamp(0, n - 1)] < col
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(go_right, hi, mid)
+    return (lo < end) & (indices[lo.clamp(0, n - 1)] == col)
+
+
+def _verify_skip(indptr, itemids, table, u, cols, verify_neg, bisect_iters, bits):
+    """Which sampled negatives the user actually liked (and must be skipped):
+    the cuckoo pair table where one was built (``bits`` not None), else the
+    bisection over the CSR row."""
+    if not verify_neg:
+        return torch.zeros(u.shape, dtype=torch.bool, device=u.device)
+    if bits is not None:
+        return membership._member(table, u, cols, *bits)
+    return _segment_member(indptr, itemids, u, cols, bisect_iters)
+
+
+def _sample_draws(gen, steps, batch, n_samples):
+    """The sampled epoch's draws: per step, (liked_idx, disliked_idx), each
+    ``batch`` uniform positions in [0, n_samples)."""
+    for _ in range(steps):
+        yield tuple(torch.randint(0, n_samples, (batch,), generator=gen, device=gen.device)
+                    for _ in range(2))
+
+
+def _group_draws(gen, classes, n_samples):
+    """The grouped epoch's draws: per chunk, in class and chunk order, a
+    (C, L) tensor ``r`` of uniform positions in [0, n_samples) (each entry's
+    negative is ``itemids[r]``)."""
+    for rows, idx, _, _ in classes:
+        for _ in range(rows.shape[0]):
+            yield torch.randint(0, n_samples, idx.shape[1:], generator=gen, device=gen.device)
+
+
+def _bpr_epoch(X, Y, yb, userids, itemids, indptr, table, draws, lr, reg,
+               verify_neg, bisect_iters, bits):
+    """One sampled BPR epoch, updating X, Y and yb in place.
+
+    ``draws`` yields each step's (liked_idx, disliked_idx) positions into the
+    (userids, itemids) flats. The item bias lives in its own vector ``yb``;
+    the user bias column is 1.0, so it adds (bl - bd) to the score. Returns
+    (correct, skipped) as device scalars.
+    """
+    correct = torch.zeros((), dtype=torch.int64, device=X.device)
+    skipped = torch.zeros((), dtype=torch.int64, device=X.device)
+    for liked_idx, disliked_idx in draws:
+        u = userids[liked_idx]
+        liked = itemids[liked_idx]
+        disliked = itemids[disliked_idx]
+        skip = _verify_skip(indptr, itemids, table, u, disliked, verify_neg, bisect_iters,
+                            bits)
+
+        xu, yl, yd, bl, bd = X[u], Y[liked], Y[disliked], yb[liked], yb[disliked]
+        z = 1.0 / (1.0 + torch.exp((xu * (yl - yd)).sum(1) + bl - bd))
+
+        keep = ~skip
+        correct += ((z < 0.5) & keep).sum()
+        skipped += skip.sum()
+
+        scale = torch.where(keep, lr, 0.0)
+        zc = z[:, None]
+        _scatter_add(X, u, scale[:, None] * (zc * (yl - yd) - reg * xu))
+        _scatter_add(Y, liked, scale[:, None] * (zc * xu - reg * yl))
+        _scatter_add(Y, disliked, scale[:, None] * (-zc * xu - reg * yd))
+        _scatter_add(yb, liked, scale * (z - reg * bl))
+        _scatter_add(yb, disliked, scale * (-z - reg * bd))
+    return correct, skipped
+
+
+def _bpr_epoch_grouped(X, Y, yb, classes, itemids, indptr, table, draws, lr, reg,
+                       verify_neg, bisect_iters, bits):
+    """One user-grouped BPR epoch over bucketed CSR chunks, in place.
+
+    ``classes`` holds each class's (rows (n, C), indices (n, C, L), data (n,
+    C, L), n_valid) with binarized data (padding is data == 0) and sentinel
+    rows (id n_users) at the end of a chunk; ``draws`` yields each chunk's
+    (C, L) negative positions into ``itemids``. Per chunk, as the JAX
+    package's ``pool_mode=0``: the C user rows gathered once, one negative
+    per entry, gradients at chunk-start values; the user row shrinks by the
+    exact ``(1 - lr reg) ** n_kept`` (the first-order ``1 - n lr reg`` goes
+    negative past 1/(lr reg) entries) and is set back once; item rows take
+    the first-order update, colliding rows summed. A sentinel row reads the
+    last user's row and writes nothing. Returns (correct, skipped) as device
+    scalars.
+    """
+    n_users, F = X.shape
+    correct = torch.zeros((), dtype=torch.int64, device=X.device)
+    skipped = torch.zeros((), dtype=torch.int64, device=X.device)
+    gamma = float(max(np.float32(1.0) - np.float32(lr) * np.float32(reg), np.float32(0.0)))
+    draws = iter(draws)
+    for rows, idx, dat, n_valid in classes:
+        for crows, cidx, cdat, nv in zip(rows, idx, dat, n_valid):
+            r = next(draws)
+            x = X[crows.clamp(max=n_users - 1)]
+            Yu, bl = Y[cidx], yb[cidx]
+            negids = itemids[r]
+            Yn, bn = Y[negids], yb[negids]
+            skip = _verify_skip(indptr, itemids, table, crows[:, None].expand_as(cidx), negids,
+                                verify_neg, bisect_iters, bits)
+            diff = Yu - Yn
+            with full_f32_matmul():
+                score = torch.bmm(diff, x[:, :, None])[:, :, 0]
+            z = 1.0 / (1.0 + torch.exp(score + bl - bn))
+            valid = cdat != 0
+            keep = valid & ~skip
+            correct += ((z < 0.5) & keep).sum()
+            skipped += (valid & skip).sum()
+            scale = torch.where(keep, lr, 0.0)
+            sz = scale * z
+            n_keep = keep.sum(1).to(torch.float32)
+            with full_f32_matmul():
+                step = torch.bmm(sz[:, None, :], diff)[:, 0]
+            X[crows[:nv]] = ((gamma ** n_keep)[:, None] * x + step)[:nv]
+            szx = sz[:, :, None] * x[:, None, :]
+            sreg = (scale * reg)[:, :, None]
+            _scatter_add(Y, cidx.reshape(-1), (szx - sreg * Yu).reshape(-1, F))
+            _scatter_add(Y, negids.reshape(-1), (-szx - sreg * Yn).reshape(-1, F))
+            _scatter_add(yb, cidx.reshape(-1), (scale * (z - reg * bl)).reshape(-1))
+            _scatter_add(yb, negids.reshape(-1), (scale * (-z - reg * bn)).reshape(-1))
+    return correct, skipped
+
+
+def grouped_classes(user_items, device):
+    """The grouped epoch's chunks of ``user_items``: each class's (rows,
+    indices, data, n_valid) on ``device``, cut as the JAX package cuts them
+    (``target_entries=1 << 16``, ``max_chunk_rows=8192``: about the sampled
+    epoch's minibatch, so hot items collide per chunk no more than per
+    batch), with the values binarized so that padding (0) is the only
+    invalid marker even where the matrix stores explicit zeros."""
+    binary = user_items.copy()
+    binary.data = np.ones(len(binary.data), dtype=np.float32)
+    buckets = BucketedCSR(binary, target_entries=1 << 16, max_chunk_rows=8192).to_device(device)
+    return [(c.rows, c.indices.long(), c.data, c.n_valid) for c in buckets.classes]
+
+
+class BayesianPersonalizedRanking(MatrixFactorizationBase):
+    """Bayesian Personalized Ranking.
+
+    Learns a matrix factorization by minimizing the pairwise ranking loss of
+    'BPR: Bayesian Personalized Ranking from Implicit Feedback' (Rendle et
+    al.). Nonzero entries are treated as binary positive signals.
+
+    Parameters
+    ----------
+    factors : int, optional
+        The number of latent factors (one extra bias column is stored)
+    learning_rate : float, optional
+    regularization : float, optional
+    dtype : data-type, optional
+        Storage dtype of the factors; training runs in float32
+    iterations : int, optional
+        The number of training epochs
+    num_threads : int, optional
+        Accepted for API parity
+    verify_negative_samples : bool, optional
+        Check that sampled negatives aren't actually liked by the user
+    random_state : int, RandomState, Generator or None, optional
+        Seeds numpy's draw of the starting factors (so the same seed gives
+        the JAX package's), then the device generator of the epochs' draws
+    mesh : None
+        Multi-device training is not ported yet; anything but None raises.
+    epoch_mode : {None, "grouped", "sampled", 0, 1}, optional
+        How an epoch visits the training pairs. ``"grouped"`` (1, and the
+        default None) streams every positive exactly once per epoch out of
+        bucketed CSR chunks; ``"sampled"`` (0) draws nnz uniform positives
+        with replacement (the reference's schedule). The JAX package's
+        ``"grouped_pool"`` and ``"grouped_pool_ids"`` (2, 3) are not ported
+        and raise NotImplementedError.
+    device : str or torch.device, optional
+        Where the epochs run and the serving tables live; default "cuda".
+        Asking for CUDA where there is none raises.
+    """
+
+    def __init__(
+        self,
+        factors=100,
+        learning_rate=0.01,
+        regularization=0.01,
+        dtype=np.float32,
+        iterations=100,
+        num_threads=0,
+        verify_negative_samples=True,
+        random_state=None,
+        mesh=None,
+        epoch_mode=None,
+        device="cuda",
+    ):
+        super().__init__(num_threads=num_threads, device=device)
+        self.factors = factors
+        self.learning_rate = learning_rate
+        self.iterations = iterations
+        self.regularization = regularization
+        self.dtype = np.dtype(dtype)
+        self.verify_negative_samples = verify_negative_samples
+        self.random_state = random_state
+        if mesh is not None:
+            raise NotImplementedError("mesh= (multi-device training) is not ported yet")
+        self.mesh = mesh
+        self.epoch_mode = epoch_mode
+        self._resolve_epoch_mode()
+
+    def _resolve_epoch_mode(self):
+        """0 (sampled) or 1 (grouped) for ``epoch_mode``."""
+        if self.epoch_mode in _UNPORTED_MODES:
+            raise NotImplementedError(
+                f"epoch_mode={self.epoch_mode!r} (a pool mode) is not ported: it measured "
+                "slower than 'grouped' in the JAX package (ROADMAP A6)")
+        try:
+            return _EPOCH_MODES[self.epoch_mode]
+        except (KeyError, TypeError):
+            raise ValueError(f"epoch_mode must be None, 'sampled' or 'grouped', "
+                             f"got {self.epoch_mode!r}") from None
+
+    def fit(self, user_items, show_progress=True, callback=None):
+        """Factorizes the user_items matrix (values treated as binary likes).
+
+        ``callback``, if given, is called after every epoch with (epoch,
+        seconds, correct, skipped).
+        """
+        rs = check_random_state(self.random_state)
+        grouped = self._resolve_epoch_mode() == 1
+        dev = self.device
+
+        with timed_step("prepare", dev):
+            if user_items.dtype != np.float32:
+                user_items = user_items.astype(np.float32)
+            user_items = check_csr(user_items)
+            if self.verify_negative_samples and not user_items.has_sorted_indices:
+                user_items.sort_indices()
+            users, items = user_items.shape
+            user_counts = np.ediff1d(user_items.indptr)
+            userids = np.repeat(np.arange(users, dtype=np.int32), user_counts)
+
+        # factors+1 layout, drawn as the JAX package draws them (items
+        # first): last column the item bias, the user column pinned to 1
+        F = self.factors
+        with timed_step("factor draw", dev):
+            if self.item_factors is None:
+                self.item_factors = (rs.random((items, F + 1), dtype=np.float32) - 0.5) / F
+                item_counts = np.bincount(user_items.indices, minlength=items)
+                self.item_factors[item_counts == 0] = np.zeros(F + 1)
+            if self.user_factors is None:
+                self.user_factors = (rs.random((users, F + 1), dtype=np.float32) - 0.5) / F
+                self.user_factors[user_counts == 0] = np.zeros(F + 1)
+                self.user_factors[:, F] = 1.0
+        if not np.allclose(self.user_factors[:, F], 1.0):
+            # the split-bias device layout scores with the user bias column
+            # fixed at its pinned value
+            log.warning("BPR pins the user bias column (user_factors[:, factors]) "
+                        "to 1.0 during training; overwriting supplied values")
+            self.user_factors[:, F] = 1.0
+
+        self._user_norms = self._item_norms = None
+
+        samples = len(user_items.data)
+        if samples == 0:
+            self._check_factors(torch.as_tensor(self.user_factors),
+                                torch.as_tensor(self.item_factors))
+            return
+
+        batch = int(min(_MAX_BATCH, max(64, 1 << int(np.ceil(np.log2(max(samples // 64, 1)))))))
+        steps = max(1, -(-samples // batch))
+        bisect_iters = int(np.ceil(np.log2(max(int(user_counts.max()), 2)))) + 1
+
+        # exact O(1) negative verification via the cuckoo pair table; the
+        # bisection handles shapes the table can't
+        bits, table = None, None
+        if self.verify_negative_samples:
+            with timed_step("pair table", dev):
+                pt = membership.build_pair_table(user_items, row_ids=userids)
+                if pt is not None:
+                    bits, table = pt.bits, pt.to_device(dev)
+
+        # device layout: (.., factors) blocks + a separate item-bias vector
+        with timed_step("upload", dev):
+            X = torch.tensor(self.user_factors[:, :F], dtype=torch.float32, device=dev)
+            Y = torch.tensor(self.item_factors[:, :F], dtype=torch.float32, device=dev)
+            yb = torch.tensor(self.item_factors[:, F], dtype=torch.float32, device=dev)
+            itemids = torch.as_tensor(user_items.indices.astype(np.int64), device=dev)
+            indptr = torch.as_tensor(user_items.indptr.astype(np.int64), device=dev)
+            if not grouped:
+                uids = torch.as_tensor(userids.astype(np.int64), device=dev)
+        if grouped:
+            with timed_step("chunks", dev):
+                classes = grouped_classes(user_items, dev)
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(rs.integers(0, 2**31)))
+        # float32 rates, as the JAX package passes them
+        lr, reg = float(np.float32(self.learning_rate)), float(np.float32(self.regularization))
+        verify = dict(verify_neg=self.verify_negative_samples, bisect_iters=bisect_iters,
+                      bits=bits)
+
+        log.debug("Running %i BPR training epochs", self.iterations)
+        with tqdm(total=self.iterations, disable=not show_progress) as progress:
+            for epoch in range(self.iterations):
+                s = time.time()
+                if grouped:
+                    correct, skipped = _bpr_epoch_grouped(
+                        X, Y, yb, classes, itemids, indptr, table,
+                        _group_draws(gen, classes, samples), lr, reg, **verify)
+                    total = samples  # every positive visited exactly once
+                else:
+                    correct, skipped = _bpr_epoch(
+                        X, Y, yb, uids, itemids, indptr, table,
+                        _sample_draws(gen, steps, batch, samples), lr, reg, **verify)
+                    total = steps * batch
+                correct, skipped = int(correct), int(skipped)  # waits for the epoch
+                progress.update(1)
+                if total != skipped:
+                    progress.set_postfix({
+                        "train_auc": f"{100.0 * correct / (total - skipped):0.2f}%",
+                        "skipped": f"{100.0 * skipped / total:0.2f}%",
+                    })
+                if callback:
+                    callback(epoch, time.time() - s, correct, skipped)
+
+        # the public factors+1 layout: the bias as trailing column, the user
+        # bias column pinned to 1.0
+        with timed_step("copy back", dev):
+            users_f = np.empty((users, F + 1), dtype=self.dtype)
+            users_f[:, :F] = X.cpu().numpy()
+            users_f[:, F] = self.user_factors[:, F]
+            items_f = np.empty((items, F + 1), dtype=self.dtype)
+            items_f[:, :F] = Y.cpu().numpy()
+            items_f[:, F] = yb.cpu().numpy()
+        self.user_factors, self.item_factors = users_f, items_f
+        self._check_factors(torch.from_numpy(users_f), torch.from_numpy(items_f))
+
+    # the npz layout both packages save and load
+    SAVE_KEYS = ("user_factors", "item_factors", "regularization", "factors",
+                 "learning_rate", "verify_negative_samples", "num_threads", "iterations",
+                 "dtype", "random_state")

@@ -312,6 +312,18 @@ class MatrixFactorizationBase(RecommenderBase):
 
     similar_items.__doc__ = RecommenderBase.similar_items.__doc__
 
+    # -- persistence -------------------------------------------------------------
+
+    def save_params(self):
+        """What :meth:`save` writes, as a dict (values that are None left out):
+        the model class's ``SAVE_KEYS``, the npz layout both packages save."""
+        args = {k: getattr(self, k, None) for k in self.SAVE_KEYS}
+        args["dtype"] = self.dtype.name
+        return {k: v for k, v in args.items() if v is not None}
+
+    def save(self, fileobj_or_path):
+        np.savez(fileobj_or_path, **self.save_params())
+
     def to_gpu(self):
         """API parity with the reference's CPU->GPU conversion: the identity."""
         return self

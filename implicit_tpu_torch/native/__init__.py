@@ -1,11 +1,11 @@
-"""ctypes binding for the host packer (``pack_ragged``).
+"""ctypes binding for the host routines (``pack_ragged``, ``cuckoo_build``).
 
 The C++ source is the port's own ``native/packer.cpp`` (the ``pack_ragged``
-routine of the JAX package's packer, copied so that the port reads nothing
-of that package). It is built with g++ on first use into
-``implicit_tpu_torch/build/`` under a name that carries the source's hash.
-Without a compiler, or without the source, the numpy path packs the same
-arrays: this is host code, not a device kernel.
+and ``cuckoo_build`` routines of the JAX package's packer, copied so that
+the port reads nothing of that package). It is built with g++ on first use
+into ``implicit_tpu_torch/build/`` under a name that carries the source's
+hash. Without a compiler, or without the source, the numpy paths build the
+same arrays: this is host code, not a device kernel.
 """
 
 import ctypes
@@ -62,6 +62,12 @@ def get_lib():
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float),
         ]
         lib.pack_ragged.restype = None
+        lib.cuckoo_build.argtypes = [
+            ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32),
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_uint32),
+        ]
+        lib.cuckoo_build.restype = ctypes.c_int32
         _lib = lib
     except (OSError, subprocess.CalledProcessError) as exc:
         log.debug("host packer unavailable, packing with numpy: %s", exc)
@@ -106,3 +112,22 @@ def pack_ragged(indptr, indices, data, row_sel, L, dtype=np.float32):
         out_idx.reshape(-1)[flat] = np.asarray(indices, dtype=np.int32)[src]
         out_dat.reshape(-1)[flat] = np.asarray(data, dtype=dtype)[src]
     return out_idx, out_dat
+
+
+def cuckoo_build(u, i, a_bits, b_bits, bucket_bits):
+    """Native bucketized-cuckoo placement for the pair-membership table.
+
+    Returns the (nbuckets, 4) uint32 table, or None when the native library
+    is unavailable or placement failed (the caller uses the numpy build).
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    u32 = np.ascontiguousarray(u, dtype=np.uint32)
+    i32 = np.ascontiguousarray(i, dtype=np.uint32)
+    table = np.zeros(((1 << bucket_bits), 4), dtype=np.uint32)
+    rc = lib.cuckoo_build(
+        _ptr(u32, ctypes.c_uint32), _ptr(i32, ctypes.c_uint32),
+        len(u32), a_bits, b_bits, bucket_bits, _ptr(table, ctypes.c_uint32),
+    )
+    return table if rc == 0 else None

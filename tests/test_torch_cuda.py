@@ -569,3 +569,148 @@ def test_fit_with_device_ingest_equals_host_ingest_on_cuda(cuda, dtype):
     for got, n in zip(fits["device", 0], plays.shape):
         want = (rng.random((n, 32), dtype=np.float32) * 0.01).astype(dtype)
         np.testing.assert_array_equal(got, want)
+
+
+# -- the SGD families (BPR, LMF): torch ops, no kernel of their own -------------
+
+
+def _sgd_plays(seed=5):
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+
+    plays = generate_synthetic(3000, 1500, 90000, seed=seed).astype(np.float32)
+    plays.sort_indices()
+    return plays
+
+
+@pytest.mark.parametrize("verifier", ["cuckoo", "bisection"])
+@pytest.mark.parametrize("epoch", ["grouped", "sampled"])
+def test_bpr_epoch_with_injected_draws_on_cuda_matches_cpu(cuda, epoch, verifier):
+    """One BPR epoch with draws made on the host, on the card and on the CPU:
+    within 1e-5 of each output's scale (the CPU tests' bar against the JAX
+    package: float32 sums in another order), the counts exact."""
+    from implicit_tpu_torch.models import bpr
+    from implicit_tpu_torch.ops import membership
+
+    plays = _sgd_plays()
+    rng = np.random.default_rng(6)
+    users, items = plays.shape
+    F, lr, reg = 32, 0.05, 0.01
+    start = [rng.standard_normal(s, dtype=np.float32) * 0.1
+             for s in ((users, F), (items, F), (items,))]
+    pt = membership.build_pair_table(plays)
+    iters = int(np.ceil(np.log2(np.diff(plays.indptr).max()))) + 1
+    userids = np.repeat(np.arange(users), np.diff(plays.indptr))
+    if epoch == "grouped":
+        shapes = [idx.shape[1:] for _, idx, _, n in bpr.grouped_classes(plays, "cpu") for _ in n]
+        draws = [rng.integers(0, plays.nnz, size=s) for s in shapes]
+    else:
+        draws = [rng.integers(0, plays.nnz, size=(2, 4096)) for _ in range(8)]
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("cuda", cuda)):
+        t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+        X, Y, yb = (t(a).clone() for a in start)
+        flat = (t(plays.indices.astype(np.int64)), t(plays.indptr.astype(np.int64)))
+        table, bits = (pt.to_device(dev), pt.bits) if verifier == "cuckoo" else (None, None)
+        if epoch == "grouped":
+            counts = bpr._bpr_epoch_grouped(X, Y, yb, bpr.grouped_classes(plays, dev), *flat,
+                                            table, [t(d) for d in draws], lr, reg, True, iters,
+                                            bits)
+        else:
+            counts = bpr._bpr_epoch(X, Y, yb, t(userids), *flat, table,
+                                    [(t(d[0]), t(d[1])) for d in draws], lr, reg, True, iters,
+                                    bits)
+        out[name] = [T.cpu().numpy() for T in (X, Y, yb)], [int(c) for c in counts]
+    assert out["cuda"][1] == out["cpu"][1] and out["cpu"][1][1] > 0
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("route", ["glued", "split", "legacy"])
+def test_lmf_class_update_with_injected_draws_on_cuda_matches_cpu(cuda, route):
+    """One LMF class update with draws made on the host, on the card and on
+    the CPU, in each pool route: within 2e-3 of each output's scale, the
+    port's bfloat16 bar (the scores are rounded to bfloat16; where the
+    devices' float32 logits straddle a rounding boundary a score moves by
+    2**-9 relative, and a row element with a gradient near 0 by about 1e-3:
+    8.8e-4 of scale in an H100 run of chip_smoke.py); the pinned column
+    exactly 1."""
+    from implicit_tpu_torch.models import lmf
+    from implicit_tpu_torch.sparse import pack_pair_on_device
+
+    plays = _sgd_plays()
+    rng = np.random.default_rng(7)
+    width, window = (130, True) if route == "split" else (34, route != "legacy")
+    neg_prop = 3
+    X0 = rng.standard_normal((plays.shape[0], width), dtype=np.float32) * 0.3
+    Y0 = rng.standard_normal((plays.shape[1], width), dtype=np.float32) * 0.3
+    d0 = 0.5 + rng.random((plays.shape[0], width), dtype=np.float32)
+    arr = rng.permutation(plays.indices).astype(np.int64)
+    out, draws = {}, None
+    for name, dev in (("cpu", "cpu"), ("cuda", cuda)):
+        buckets = pack_pair_on_device(plays, target_entries=1 << 14, grid="pow2", mode="host",
+                                      device=dev)[0]
+        cls = max(buckets.classes, key=lambda c: c.n_chunks)
+        neg_count = min(plays.shape[1], cls.L * neg_prop)
+        G = -(-cls.C // 8)
+        if draws is None:
+            draws = [rng.integers(0, plays.nnz, size=(G,) if window else (G, neg_count))
+                     for _ in range(cls.n_chunks)]
+        X, dss, Y = (torch.as_tensor(a, device=dev).clone() for a in (X0, d0, Y0))
+        a = torch.as_tensor(np.concatenate([arr, arr[:neg_count]]), device=dev)
+        src = lmf._build_pool(Y, a, lmf._pool_split(width)) if window else a
+        lmf._lmf_class_update(X, dss, Y, src, cls, [torch.as_tensor(d, device=dev) for d in draws],
+                              1.0, 0.6, neg_prop, neg_count, -2, window)
+        out[name] = X.cpu().numpy(), dss.cpu().numpy()
+    assert (out["cuda"][0][:, -2] == 1.0).all()
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert np.abs(got - want).max() <= 2e-3 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("family", ["bpr-grouped", "bpr-sampled", "lmf"])
+def test_sgd_fits_repeat_bit_for_bit_on_cuda(cuda, family):
+    """Two fits with the same random_state give the same bits on the card
+    (BPR accumulates colliding rows with index_put_(accumulate=True), which
+    sums in a fixed order), with the pinned columns intact, and serve."""
+    from implicit_tpu_torch.bpr import BayesianPersonalizedRanking
+    from implicit_tpu_torch.lmf import LogisticMatrixFactorization
+
+    plays = _sgd_plays(seed=8)
+    fits = []
+    for _ in range(2):
+        if family == "lmf":
+            model = LogisticMatrixFactorization(factors=32, iterations=5, random_state=3,
+                                                device=cuda)
+        else:
+            model = BayesianPersonalizedRanking(factors=64, iterations=3, random_state=3,
+                                                epoch_mode=family.split("-")[1], device=cuda)
+        model.fit(plays, show_progress=False)
+        fits.append((model.user_factors, model.item_factors))
+    for a, b in zip(*fits):
+        assert np.isfinite(a).all()
+        np.testing.assert_array_equal(a, b)
+    if family == "lmf":
+        assert (fits[0][0][:, -2] == 1).all() and (fits[0][1][:, -1] == 1).all()
+    else:
+        assert (fits[0][0][:, -1] == 1).all()
+    ids, scores = model.recommend(np.arange(64), plays[:64], N=10)
+    assert ids.shape == (64, 10) and np.isfinite(scores).all()
+    assert not any(np.isin(ids[u], plays[u].indices).any() for u in range(64))
+
+
+def test_membership_lookup_on_cuda_matches_numpy(cuda):
+    """The pair-table lookup on the card equals the host lookup bit for bit,
+    on the stored pairs, random pairs and the largest ids."""
+    from implicit_tpu_torch.ops import membership
+
+    plays = _sgd_plays()
+    for M in (plays, plays[:, :1024]):  # 16-bit slots; a second id space
+        pt = membership.build_pair_table(M)
+        rng = np.random.default_rng(9)
+        qu = np.concatenate([np.repeat(np.arange(M.shape[0]), np.diff(M.indptr)),
+                             rng.integers(0, M.shape[0], 50000), [M.shape[0] - 1]])
+        qi = np.concatenate([M.indices, rng.integers(0, M.shape[1], 50000), [M.shape[1] - 1]])
+        want = pt.member(qu, qi)
+        got = membership._member(pt.to_device(cuda), torch.as_tensor(qu, device=cuda),
+                                 torch.as_tensor(qi, device=cuda), *pt.bits)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+        assert want[:M.nnz].all()

@@ -1,10 +1,11 @@
-"""The port's ALS model: the shared contract suite, quality gates, and
+"""The port's models: the shared contract suite, quality gates, and
 weights carried across from the JAX package.
 
 The behavioural contract of ``tests/test_models_common.py`` runs here with
-the port's factories (``device="cpu"``), through this module's own
-``model_factory`` fixture; the three ``*_pipelined`` tests are left out
-(pipelined serving is not ported yet).
+the port's factories (ALS, BPR and LMF at ``conftest.py``'s settings,
+``device="cpu"``), through this module's own ``model_factory`` fixture; the
+three ``*_pipelined`` tests are left out (pipelined serving is not ported
+yet).
 """
 
 import ast
@@ -47,9 +48,13 @@ from test_models_common import (  # noqa: F401  (collected here with the port's 
 
 from implicit_tpu_torch import convert
 from implicit_tpu_torch.als import AlternatingLeastSquares
+from implicit_tpu_torch.bpr import BayesianPersonalizedRanking
 from implicit_tpu_torch.datasets.synthetic import generate_synthetic
 from implicit_tpu_torch.evaluation import precision_at_k, train_test_split
+from implicit_tpu_torch.lmf import LogisticMatrixFactorization
 from implicit_tpu_torch.models.als import AlternatingLeastSquares as ALSModel
+from implicit_tpu_torch.models.bpr import BayesianPersonalizedRanking as BPRModel
+from implicit_tpu_torch.models.lmf import LogisticMatrixFactorization as LMFModel
 from implicit_tpu_torch.utils import ParameterWarning
 
 torch.set_num_threads(2)
@@ -71,7 +76,17 @@ def make_als_f16():
                                    random_state=23, device="cpu")
 
 
-PORT_FACTORIES = {"als": make_als, "als_cholesky": make_als_cholesky, "als_f16": make_als_f16}
+def make_bpr():
+    return BayesianPersonalizedRanking(factors=31, learning_rate=0.01, regularization=0,
+                                       random_state=42, device="cpu")
+
+
+def make_lmf():
+    return LogisticMatrixFactorization(factors=30, random_state=23, device="cpu")
+
+
+PORT_FACTORIES = {"als": make_als, "als_cholesky": make_als_cholesky, "als_f16": make_als_f16,
+                  "bpr": make_bpr, "lmf": make_lmf}
 
 
 @pytest.fixture(params=sorted(PORT_FACTORIES))
@@ -194,18 +209,90 @@ def test_fit_matches_jax_model():
         assert np.abs(got - want).max() <= 2e-3 * np.abs(want).max()
 
 
+# -- BPR and LMF weights across the packages ----------------------------------
+
+
+def _jax_sgd_model(family, dtype=np.float32):
+    from implicit_tpu.models.bpr import BayesianPersonalizedRanking as JaxBPR
+    from implicit_tpu.models.lmf import LogisticMatrixFactorization as JaxLMF
+
+    plays = generate_synthetic(300, 200, 6000, seed=4)
+    cls = JaxBPR if family == "bpr" else JaxLMF
+    model = cls(factors=16, iterations=3, random_state=5, dtype=dtype)
+    model.fit(plays, show_progress=False)
+    return model, plays
+
+
+SGD = {"bpr": (BPRModel, convert.bpr_from_numpy), "lmf": (LMFModel, convert.lmf_from_numpy)}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16], ids=["f32", "f16"])
+@pytest.mark.parametrize("family", sorted(SGD))
+def test_load_jax_saved_sgd_npz(family, dtype):
+    jmodel, plays = _jax_sgd_model(family, dtype)
+    buf = io.BytesIO()
+    jmodel.save(buf)
+    buf.seek(0)
+    model = SGD[family][0].load(buf, device="cpu")
+    assert model.device == torch.device("cpu") and model.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(model.user_factors, jmodel.user_factors)
+    np.testing.assert_array_equal(model.item_factors, jmodel.item_factors)
+    assert model.learning_rate == jmodel.learning_rate and model.factors == 16
+    users = np.arange(0, 300, 7)
+    got = model.recommend(users, plays[users], N=10)
+    want = jmodel.recommend(users, plays[users], N=10)
+    np.testing.assert_array_equal(got[0], want[0])
+    tol = 1e-5 if dtype == np.float32 else 2e-2  # 16-bit: bf16 serving GEMMs
+    np.testing.assert_allclose(got[1], want[1], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("family", sorted(SGD))
+def test_sgd_convert_round_trip_and_back_to_jax(family):
+    from implicit_tpu.models.bpr import BayesianPersonalizedRanking as JaxBPR
+    from implicit_tpu.models.lmf import LogisticMatrixFactorization as JaxLMF
+
+    jmodel, plays = _jax_sgd_model(family)
+    cls, from_numpy = SGD[family]
+    params = {k: getattr(jmodel, k) for k in cls.SAVE_KEYS}
+    params["dtype"] = jmodel.dtype.name
+    model = from_numpy(params, device="cpu")
+    assert isinstance(model, cls)
+    assert convert.numpy_params(model).keys() == convert.numpy_params(jmodel).keys() == {
+        k for k, v in params.items() if v is not None}
+    users = np.arange(40)
+    np.testing.assert_array_equal(model.recommend(users, plays[users])[0],
+                                  jmodel.recommend(users, plays[users])[0])
+    # the port's save loads back into the JAX package
+    buf = io.BytesIO()
+    model.save(buf)
+    buf.seek(0)
+    back = (JaxBPR if family == "bpr" else JaxLMF).load(buf)
+    np.testing.assert_array_equal(back.user_factors, jmodel.user_factors)
+    np.testing.assert_array_equal(back.item_factors, jmodel.item_factors)
+    assert back.regularization == jmodel.regularization
+    # a port model refits from loaded weights and keeps its layout
+    model.iterations = 1
+    model.fit(plays, show_progress=False)
+    pinned = (slice(None), -1) if family == "bpr" else (slice(None), -2)
+    np.testing.assert_array_equal(model.user_factors[pinned], 1.0)
+
+
 # -- device handling and unported options --------------------------------------
 
 
-def test_cuda_without_a_card_raises(monkeypatch):
+@pytest.mark.parametrize("family", ["als", "bpr", "lmf"])
+def test_cuda_without_a_card_raises(family, monkeypatch):
+    factory, model_cls = {"als": (AlternatingLeastSquares, ALSModel),
+                          "bpr": (BayesianPersonalizedRanking, BPRModel),
+                          "lmf": (LogisticMatrixFactorization, LMFModel)}[family]
     buf = io.BytesIO()
-    make_als().save(buf)
+    factory(device="cpu").save(buf)
     buf.seek(0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
-        AlternatingLeastSquares()
+        factory()
     with pytest.raises(RuntimeError, match="cuda"):
-        ALSModel.load(buf)  # on the class, load builds on "cuda" by default
+        model_cls.load(buf)  # on the class, load builds on "cuda" by default
 
 
 @pytest.mark.parametrize("kwargs,error", [
@@ -217,6 +304,19 @@ def test_cuda_without_a_card_raises(monkeypatch):
 def test_unsupported_arguments_raise(kwargs, error):
     with pytest.raises(error):
         AlternatingLeastSquares(**{"device": "cpu", **kwargs})
+
+
+@pytest.mark.parametrize("factory,kwargs,error", [
+    (BayesianPersonalizedRanking, dict(mesh=2), NotImplementedError),
+    (BayesianPersonalizedRanking, dict(device="meta"), ValueError),
+    (BayesianPersonalizedRanking, dict(epoch_mode="grouped_pool"), NotImplementedError),
+    (LogisticMatrixFactorization, dict(mesh=2), NotImplementedError),
+    (LogisticMatrixFactorization, dict(device="meta"), ValueError),
+    (LogisticMatrixFactorization, dict(ingest="remote"), ValueError),
+], ids=["bpr-mesh", "bpr-device", "bpr-pool", "lmf-mesh", "lmf-device", "lmf-ingest"])
+def test_sgd_unsupported_arguments_raise(factory, kwargs, error):
+    with pytest.raises(error):
+        factory(**{"device": "cpu", **kwargs})
 
 
 def test_accepted_parity_arguments():
@@ -292,7 +392,9 @@ def test_port_sources_import_no_jax():
 def test_port_imports_without_jax():
     code = (
         "import sys, implicit_tpu_torch, implicit_tpu_torch.convert, "
-        "implicit_tpu_torch.evaluation, implicit_tpu_torch.ops.cg_kernels, chip_smoke\n"
+        "implicit_tpu_torch.evaluation, implicit_tpu_torch.ops.cg_kernels, "
+        "implicit_tpu_torch.bpr, implicit_tpu_torch.lmf, implicit_tpu_torch.ops.membership, "
+        "chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'implicit_tpu')]\n"
         "assert not bad, bad\n"
     )
