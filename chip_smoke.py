@@ -64,7 +64,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    busy share), ``recommend`` from both; one grouped BPR epoch and LMF
    class updates with draws made on the host, card against CPU, whose bar
    must reject a result missing one chunk; p@10 >= 0.85 for BPR and LMF on
-   ``bench_quality``'s clustered set.
+   ``bench_quality``'s clustered set;
+6. the item-item family (torch ops and host C++, no kernel of its own) at
+   the ML-20M shape (138k x 27k, 12M nnz): BM25 K=20's similarity through
+   the device route and the host route, which must agree (values within
+   1e-5, neighbours equal up to ties at the K-th score; the same bar must
+   reject a gramian missing its last user chunk, and a second device build
+   give the same bits), with both routes' times, the gramian's TFLOP/s and
+   what "auto" picks; BM25 K=20 at the last.fm shape (the host route);
+   ``EASERecommender(K=100)``'s steps and peak device memory, its closed
+   form checked on 64 columns (weights solved with lam off by 10% must
+   fail); batched ``recommend`` from both models against the host
+   formulation; clustered p@10 >= 0.85 for BM25 and EASE; the cost rule's
+   measured rates.
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's name and power limit; the last line is
@@ -648,16 +660,20 @@ class SetupSplit(logging.Handler):
     """Collects a fit's set-up steps, (step, seconds) in order, from the
     port's debug lines ``"fit set-up %s in %.4f s"``
     (``implicit_tpu_torch._device.timed_step``, which synchronizes the card
-    around each step while debug logging is on), and LMF's pool routes."""
+    around each step while debug logging is on), an item-item fit's steps
+    (``"item-item fit %s in %.4f s"``), and LMF's pool routes."""
 
     def __init__(self):
         super().__init__(logging.DEBUG)
         self.steps = []
+        self.item_steps = []
         self.routes = []
 
     def emit(self, record):
         if record.msg.startswith("fit set-up"):
             self.steps.append(record.args)
+        elif record.msg.startswith("item-item fit"):
+            self.item_steps.append(record.args)
         elif record.msg.startswith("LMF negative pools"):
             self.routes.append(record.getMessage())
 
@@ -1296,6 +1312,307 @@ def phase_sgd(device, plays):
     sgd_quality(device)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the item-item family (torch ops and host C++; no kernel)
+# ---------------------------------------------------------------------------
+
+# device route against host route (tests/test_knn.py's bar): values within
+# KNN_RTOL, neighbour sets equal up to exact ties at the K-th score
+KNN_RTOL = 1e-5
+# recommend on the card against the host formulation: scores within this
+# share of the batch's largest |score|, ids equal up to ties
+SERVE_TOL = 1e-9
+# EASE's closed form on 64 columns J: the off-diagonal entries of
+# (S + lam I) B[:, J] - S[:, J], computed in float64, within EASE_BAR of
+# max |lam B[:, J]|; a B solved with lam off by 10% gives 0.1 by construction
+EASE_BAR = 1e-2
+
+
+def knn_disagreement(a, b, rtol):
+    """Row by row, two K-sparse similarity CSRs: the largest relative
+    difference of their sorted values, and the rows whose neighbour sets
+    differ beyond exact ties at the K-th score (a column whose value clears
+    the other row's smallest value by more than ``rtol`` missing from it)."""
+    err, bad = 0.0, []
+    for r in range(a.shape[0]):
+        sa, sb = slice(a.indptr[r], a.indptr[r + 1]), slice(b.indptr[r], b.indptr[r + 1])
+        va, vb = a.data[sa], b.data[sb]
+        if len(va) != len(vb):
+            bad.append(r)
+            continue
+        if not len(va):
+            continue
+        da, db = np.sort(va)[::-1], np.sort(vb)[::-1]
+        err = max(err, float(np.max(np.abs(da - db) / np.abs(db))))
+        for cols, vals, other, kth in ((a.indices[sa], va, b.indices[sb], db[-1]),
+                                       (b.indices[sb], vb, a.indices[sa], da[-1])):
+            clear = cols[vals > kth + rtol * abs(kth)]
+            if not np.isin(clear, other).all():
+                bad.append(r)
+                break
+    return err, bad
+
+
+def knn_routes(ml, device):
+    """Step 1: BM25 K=20 weights at the ML-20M shape through the device and
+    the host route; their agreement, a gramian missing its last user chunk
+    rejected by the same bar, a second device build bit for bit; times and
+    what "auto" picks. Returns the BM25 weights and the measured rates."""
+    import torch
+    from scipy.sparse import csr_matrix
+
+    from implicit_tpu_torch import native
+    from implicit_tpu_torch import nearest_neighbours as nn
+
+    weighted = csr_matrix(nn.bm25_weight(ml.T, 1.2, 0.75).T)  # BM25Recommender's defaults
+    nn.all_pairs_knn(weighted[:2000], 20, method="device", device=device)  # cuBLAS warm-up
+    small = weighted[:1000, :1000]
+    t0 = time.perf_counter()
+    nn.all_pairs_knn(small, 20, method="device", device=device)
+    call_s = time.perf_counter() - t0  # the route's fixed cost: its flops take microseconds
+
+    def device_build():
+        with port_debug_log() as split:
+            t0 = time.perf_counter()
+            sim = nn.all_pairs_knn(weighted, 20, method="device", device=device).tocsr()
+            wall = time.perf_counter() - t0
+        return sim, wall, dict(split.item_steps)
+
+    dev, dev_s, steps = device_build()
+    native.get_lib()  # built (g++) before the host route is timed
+    t0 = time.perf_counter()
+    host = nn.all_pairs_knn(weighted, 20, method="host").tocsr()
+    host_s = time.perf_counter() - t0
+    users, items = weighted.shape
+    threads = native.knn_effective_threads(items)
+    flops = 2.0 * items * items * users
+    say(6, f"bm25 K=20 {weighted.shape} nnz={weighted.nnz}: device route {dev_s:.3f} s "
+           f"(gramian {steps['gramian']:.3f} s = {flops / steps['gramian'] / 1e12:.2f} TFLOP/s "
+           f"incl. the upload, top-k {steps['top-k']:.3f} s), host route {host_s:.3f} s on "
+           f"{threads} threads")
+    err, bad = knn_disagreement(dev, host, KNN_RTOL)
+    if err > KNN_RTOL or bad:
+        raise AssertionError(f"knn device vs host route: values {err:.3e} (bar {KNN_RTOL}), "
+                             f"{len(bad)} rows with other neighbours beyond ties: {bad[:5]}")
+    ties = int(sum(not np.array_equal(np.sort(dev.indices[dev.indptr[r]:dev.indptr[r + 1]]),
+                                      np.sort(host.indices[host.indptr[r]:host.indptr[r + 1]]))
+                   for r in range(items)))
+    say(6, f"knn device vs host route: values within {err:.3e} (bar {KNN_RTOL}); "
+           f"{ties} of {items} rows pick other columns at exact ties of the K-th score")
+
+    # the same bar against a gramian missing its last user chunk
+    chunk = max(8, min(users, nn._DEVICE_KNN_DENSE_BYTES // items))
+    last = (users - 1) // chunk * chunk
+    wrong = nn.all_pairs_knn(weighted[:last], 20, method="device", device=device).tocsr()
+    wrong_err, wrong_bad = knn_disagreement(wrong, host, KNN_RTOL)
+    if not (wrong_err > KNN_RTOL or wrong_bad):
+        raise AssertionError("knn: the route bar does not reject a gramian missing its last "
+                             "user chunk")
+    say(6, f"knn: a gramian missing its last user chunk ({users - last} users): values "
+           f"{wrong_err:.3e}, {len(wrong_bad)} rows with other neighbours; rejected")
+    del wrong
+    again, again_s, _ = device_build()
+    if not all(np.array_equal(getattr(dev, f), getattr(again, f))
+               for f in ("indptr", "indices", "data")):
+        raise AssertionError("knn: two device builds differ")
+    say(6, f"knn: a second device build ({again_s:.3f} s) gives the same bits")
+
+    # the cost rule's rates: the upload alone, then the gramian without it
+    arrays = (np.diff(weighted.indptr).astype(np.int64), weighted.indices.astype(np.int32),
+              weighted.data.astype(np.float32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in arrays:
+        torch.as_tensor(a).to(device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    degrees = np.diff(weighted.indptr).astype(np.float64)
+    pairs = float(degrees @ degrees)
+    saved = native.knn_all_pairs
+    native.knn_all_pairs = lambda *args: None  # the blocked scipy fallback
+    try:
+        part = weighted[: users // 10]
+        t0 = time.perf_counter()
+        nn._all_pairs_knn_host(part, 20)
+        scipy_s = time.perf_counter() - t0
+    finally:
+        native.knn_all_pairs = saved
+    part_deg = np.diff(part.indptr).astype(np.float64)
+    rates = {
+        "device_call_s": call_s,
+        "gramian_flops": flops / (steps["gramian"] - upload_s),
+        "h2d_bytes_per_s": sum(a.nbytes for a in arrays) / upload_s,
+        "topk_elements_per_s": float(items) ** 2 / steps["top-k"],
+        "host_pairs_per_s_per_thread": pairs / host_s / threads,
+        "scipy_pairs_per_s": float(part_deg @ part_deg) / scipy_s,
+    }
+    auto = nn._device_knn_wins(weighted, device)
+    say(6, f"knn auto picks the {'device' if auto else 'host'} route here "
+           f"(sum d_u^2 = {pairs:.4g} pair expansions)")
+    return weighted, rates, auto
+
+
+def lastfm_bm25(plays, device):
+    """Step 2: bench.py's KNN cell, BM25 K=20 at the last.fm shape (over the
+    device item cap: the host route)."""
+    from implicit_tpu_torch import native
+    from implicit_tpu_torch.nearest_neighbours import BM25Recommender
+
+    model = BM25Recommender(K=20, device=device)
+    t0 = time.perf_counter()
+    model.fit(plays, show_progress=False)
+    wall = time.perf_counter() - t0
+    if not model.similarity.nnz or not np.isfinite(model.similarity.data).all():
+        raise AssertionError("bm25 last.fm: empty or non-finite similarity")
+    say(6, f"bm25 K=20 last.fm shape {plays.shape}: fit {wall:.3f} s on the host route, "
+           f"{native.knn_effective_threads(plays.shape[1])} threads, similarity nnz "
+           f"{model.similarity.nnz}")
+
+
+def ease_closed_form(S, B, lam, J):
+    """The off-diagonal entries of (S + lam I) B[:, J] - S[:, J] in float64,
+    over max |lam B[:, J]|: 0 for exact weights."""
+    import torch
+
+    BJ = B[:, J].double()
+    R = S.double() @ BJ + lam * BJ - S[:, J].double()
+    R[J, torch.arange(len(J), device=R.device)] = 0.0
+    return float(R.abs().max() / (lam * BJ).abs().max())
+
+
+def ease_check(ml, device):
+    """Step 3: EASERecommender(K=100) (lam = 250) at the ML-20M shape, its
+    steps and peak memory; the closed form on 64 random columns, which must
+    reject weights solved with lam off by 10%."""
+    import torch
+
+    from implicit_tpu_torch import ease
+    from implicit_tpu_torch.nearest_neighbours import _dense_gramian_device
+
+    model = ease.EASERecommender(K=100, device=device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    with port_debug_log() as split:
+        t0 = time.perf_counter()
+        model.fit(ml, show_progress=False)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    say(6, f"ease K=100 lam=250 {ml.shape}: fit {wall:.3f} s: " + ", ".join(
+        f"{step} {secs:.4f}" for step, secs in split.item_steps)
+        + f" s; peak device memory {peak / 2**30:.2f} GiB")
+    if not np.isfinite(model.similarity.data).all():
+        raise AssertionError("ease: non-finite similarity")
+
+    binary = ml.copy()
+    binary.data = np.ones_like(binary.data)
+    S = _dense_gramian_device(binary, device)  # integer counts: exact in float32
+    J = torch.as_tensor(np.random.default_rng(3).choice(ml.shape[1], 64, replace=False),
+                        device=device)
+    errs = {}
+    for lam in (250.0, 275.0):
+        B = ease._ease_solve(S.clone(), lam)
+        errs[lam] = ease_closed_form(S, B, 250.0, J)
+        del B
+    del S
+    torch.cuda.empty_cache()
+    if not errs[250.0] <= EASE_BAR:
+        raise AssertionError(f"ease closed form: {errs[250.0]:.3e} > {EASE_BAR}")
+    if errs[275.0] <= EASE_BAR:
+        raise AssertionError(f"ease closed form: weights with lam=275 pass ({errs[275.0]:.3e})")
+    say(6, f"ease closed form on 64 columns: (S + lam I) B[:, J] - S[:, J] off the diagonal "
+           f"{errs[250.0]:.3e} of max |lam B[:, J]| (bar {EASE_BAR}); lam off by 10%: "
+           f"{errs[275.0]:.3e}, rejected")
+    return model
+
+
+def serve_item_item(tag, model, plays):
+    """Step 4: batched recommend for 1024 users (N=10, liked filtered) on
+    the card against the host formulation (a scipy product and the port's
+    ``native.topk_rows``); ms per batch."""
+    from implicit_tpu_torch.nearest_neighbours import _topk_rows_sorted
+
+    users = np.arange(0, plays.shape[0], plays.shape[0] // 1024)[:1024]
+    liked = plays[users]
+    serve_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ids, scores = model.recommend(users, liked, N=10)
+        serve_ms.append((time.perf_counter() - t0) * 1e3)
+    host = (liked @ model.similarity).tocsr()
+    mask = liked.copy()
+    mask.data = np.ones_like(mask.data)
+    host = (host - host.multiply(mask)).tocsr()
+    host.eliminate_zeros()
+    want_ids, want = _topk_rows_sorted(host, 10)
+    tol = SERVE_TOL * np.abs(want[want_ids >= 0]).max()
+    err = float(np.abs(scores - want).max())
+    mismatched = [r for r in range(len(users)) if not np.array_equal(ids[r], want_ids[r])]
+    beyond = [r for r in mismatched
+              if not np.isin(want_ids[r][want[r] > want[r][-1] + tol], ids[r]).all()]
+    if err > tol or beyond or (ids < -1).any():
+        raise AssertionError(f"recommend {tag}: scores {err:.3e} (bar {tol:.3e}), "
+                             f"{len(beyond)} rows with other ids beyond ties")
+    say(6, f"recommend 1024 users N=10 filtered ({tag} model): card vs host scores within "
+           f"{err:.3e} (bar {tol:.3e}), ids equal but {len(mismatched)} rows at ties; "
+           f"ms {[round(t, 2) for t in serve_ms]}")
+
+
+def item_item_quality(device):
+    """Step 5: p@10 on ``bench_quality``'s clustered set: BM25 K=60 and EASE
+    K=100 lam=50, each at least 0.85 (the JAX package recorded 0.8656 and
+    0.8678, ``BENCH_r03.json``)."""
+    from implicit_tpu_torch.datasets.synthetic import get_synthetic_clustered
+    from implicit_tpu_torch.ease import EASERecommender
+    from implicit_tpu_torch.evaluation import ranking_metrics_at_k, train_test_split
+    from implicit_tpu_torch.nearest_neighbours import BM25Recommender
+
+    likes = get_synthetic_clustered(users=3000, items=600, groups=20, likes_per_user=24, seed=7)
+    train, test = train_test_split(likes, train_percentage=0.8, random_state=19)
+    out = {}
+    for name, model, jax_p10 in (
+            ("bm25", BM25Recommender(K=60, device=device), 0.8656),
+            ("ease", EASERecommender(K=100, regularization=50.0, device=device), 0.8678)):
+        model.fit(train, show_progress=False)
+        out[name] = float(ranking_metrics_at_k(model, train, test, K=10,
+                                               show_progress=False)["precision"])
+        say(6, f"clustered set {likes.shape}: {name} p@10 = {out[name]:.4f} (gate >= 0.85; "
+               f"the JAX package {jax_p10})")
+    low = {k: v for k, v in out.items() if not v >= 0.85}
+    if low:
+        raise AssertionError(f"clustered p@10 under 0.85: {low}")
+
+
+def phase_item_item(device, lastfm):
+    """Phase 6: the item-item family at the ML-20M shape (the JAX bench's,
+    ``generate_synthetic(138_000, 27_000, 12_000_000, seed=1)``) and
+    bench.py's last.fm KNN cell; ``lastfm`` is phase 3's data."""
+    import torch
+
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+    from implicit_tpu_torch.nearest_neighbours import BM25Recommender
+
+    t_phase = time.perf_counter()
+    ml = generate_synthetic(138_000, 27_000, 12_000_000, seed=1)
+    say(6, f"ML-20M-shaped data {ml.shape} nnz={ml.nnz} in {time.perf_counter() - t_phase:.1f} s")
+    _, rates, auto = knn_routes(ml, device)
+    torch.cuda.empty_cache()
+    lastfm_bm25(lastfm, device)
+    ease_model = ease_check(ml, device)
+    bm25 = BM25Recommender(K=20, device=device)
+    t0 = time.perf_counter()
+    bm25.fit(ml, show_progress=False)
+    say(6, f"bm25 K=20 {ml.shape} fit through auto ({'device' if auto else 'host'} route) "
+           f"{time.perf_counter() - t0:.3f} s")
+    serve_item_item("bm25 K=20", bm25, ml)
+    serve_item_item("ease K=100", ease_model, ml)
+    del bm25, ease_model
+    torch.cuda.empty_cache()
+    item_item_quality(device)
+    say(6, f"cost-rule rates measured here ({gpu_line()}): " + ", ".join(
+        f"{k} {v:.4g}" for k, v in rates.items()))
+    say(6, f"phase 6 wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def kernel_rows(kernels, launches):
     """One row per kernel for the ``{"kernels": [...]}`` line: the main paths'
     launches (all variants), the largest error over every case, the float32
@@ -1397,6 +1714,7 @@ def main():
     phase_quality(device)
     phase_quality(device, gather_quant=True, dtype=np.float16)
     phase_sgd(device, plays)
+    phase_item_item(device, plays)
 
     print(json.dumps({"kernels": kernel_rows(kernels, launches)}))
     print(gpu_line())

@@ -2,9 +2,12 @@
 
 Collaborative filtering for implicit feedback on one NVIDIA H100: an
 implicit-ALS fit whose per-row conjugate-gradient solves run in hand-written
-CUDA kernels (``ops/csrc``), the SGD families BPR and LMF as torch ops, and
-batched top-k serving. The package mirrors ``implicit_tpu``'s module layout
-and public surface; it imports ``torch`` and never ``jax``.
+CUDA kernels (``ops/csrc``), the SGD families BPR and LMF as torch ops, the
+item-item family (``nearest_neighbours``: Cosine, TF-IDF and BM25 KNN; and
+``ease``: EASE), whose similarity builds on the card with torch ops or on
+the host with the port's C++, and batched top-k serving. The package
+mirrors ``implicit_tpu``'s module layout and public surface; it imports
+``torch`` and never ``jax``.
 
 Models take ``device=`` (default ``"cuda"``); asking for CUDA where there is
 none raises instead of falling back to the CPU. Importing the package sets
@@ -12,8 +15,8 @@ no global torch flag: the port's float32 products pin full float32 each
 (``_device.full_f32_matmul``).
 """
 
-from . import als, bpr, lmf
+from . import als, bpr, ease, lmf, nearest_neighbours
 
 __version__ = "0.1.0"
 
-__all__ = ["als", "bpr", "lmf", "__version__"]
+__all__ = ["als", "bpr", "ease", "lmf", "nearest_neighbours", "__version__"]

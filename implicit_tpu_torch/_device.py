@@ -70,9 +70,11 @@ def full_f32_matmul():
 
 
 @contextlib.contextmanager
-def timed_step(step, device):
-    """Logs the block's seconds at debug level as ``"fit set-up %s in %.4f
-    s"`` (args: the step's name, the seconds).
+def timed_step(step, device, stage="fit set-up"):
+    """Logs the block's seconds at debug level as ``"<stage> %s in %.4f
+    s"`` (args: the step's name, the seconds): ``"fit set-up %s in %.4f s"``
+    for the factor models' set-up, ``"item-item fit ..."`` for the steps of
+    an item-item similarity build.
 
     With debug logging on, a CUDA ``device`` is synchronized before the
     clock starts and before it stops, so each step counts the device work it
@@ -87,4 +89,4 @@ def timed_step(step, device):
     start = time.perf_counter()
     yield
     sync(device)
-    log.debug("fit set-up %s in %.4f s", step, time.perf_counter() - start)
+    log.debug(stage + " %s in %.4f s", step, time.perf_counter() - start)

@@ -714,3 +714,144 @@ def test_membership_lookup_on_cuda_matches_numpy(cuda):
                                  torch.as_tensor(qi, device=cuda), *pt.bits)
         np.testing.assert_array_equal(got.cpu().numpy(), want)
         assert want[:M.nnz].all()
+
+
+# -- the item-item family: torch ops and host C++, no kernel of its own ------
+
+
+def _item_item_plays():
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+
+    return generate_synthetic(3000, 800, 60000, seed=7)
+
+
+def _bm25(plays):
+    import scipy.sparse as sp
+
+    from implicit_tpu_torch import nearest_neighbours as nn
+
+    return sp.csr_matrix(nn.bm25_weight(plays.T, 1.2, 0.75).T)
+
+
+def _same_csr(a, b):
+    return all(np.array_equal(getattr(a, f), getattr(b, f)) for f in ("indptr", "indices", "data"))
+
+
+@pytest.mark.parametrize("dense_bytes", [None, 1 << 16], ids=["one-chunk", "chunks"])
+def test_knn_device_route_on_cuda_matches_cpu(cuda, monkeypatch, dense_bytes):
+    """The device route on the card against the same route on the CPU and
+    the host route: values within rtol 1e-5, neighbours equal up to exact
+    ties at the K-th score; a second build gives the same bits."""
+    from chip_smoke import knn_disagreement
+
+    from implicit_tpu_torch import nearest_neighbours as nn
+
+    if dense_bytes is not None:  # 82 users per chunk: 37 chunks
+        monkeypatch.setattr(nn, "_DEVICE_KNN_DENSE_BYTES", dense_bytes)
+    weighted = _bm25(_item_item_plays())
+    got = nn.all_pairs_knn(weighted, 20, method="device", device=cuda).tocsr()
+    assert _same_csr(got, nn.all_pairs_knn(weighted, 20, method="device", device=cuda).tocsr())
+    for want in (nn.all_pairs_knn(weighted, 20, method="device", device="cpu"),
+                 nn.all_pairs_knn(weighted, 20, method="host")):
+        err, bad = knn_disagreement(got, want.tocsr(), 1e-5)
+        assert err <= 1e-5 and not bad, (err, bad[:5])
+
+
+def test_ease_on_cuda_matches_cpu(cuda):
+    """cuSOLVER's float32 solve against the CPU's and the float64 closed
+    form, at the JAX package's bar (atol 2e-4); the same bits twice; a
+    matrix that is not positive definite raises on the card too."""
+    from scipy.sparse import csr_matrix
+
+    from implicit_tpu_torch import ease
+    from implicit_tpu_torch.recommender_base import ModelFitError
+
+    X = _item_item_plays()
+    X.data[:] = 1.0
+    got = ease.ease_weights(X, 250.0, device=cuda)
+    assert torch.equal(got, ease.ease_weights(X, 250.0, device=cuda))
+    got = got.cpu().numpy()
+    np.testing.assert_allclose(got, ease.ease_weights(X, 250.0, device="cpu").numpy(), atol=2e-4)
+    G = (X.T @ X).toarray() + 250.0 * np.eye(X.shape[1])
+    P = np.linalg.inv(G)
+    oracle = -P / np.diag(P)[None, :]
+    np.fill_diagonal(oracle, 0.0)
+    np.testing.assert_allclose(got, oracle, atol=2e-4)
+    singular = X[:, :50].toarray()
+    singular[:, 7] = 0.0
+    with pytest.raises(ModelFitError, match="not positive definite"):
+        ease.ease_weights(csr_matrix(singular), 0.0, device=cuda)
+
+
+def _recommend_close(got, want, rel=1e-9):
+    """Scores within ``rel`` of the batch's largest |score|; ids equal but
+    at ties of the wanted scores (a row's last score may tie past N)."""
+    (ids, scores), (wids, wscores) = got, want
+    np.testing.assert_array_equal(ids >= 0, wids >= 0)
+    tol = rel * np.abs(wscores[wids >= 0]).max()
+    np.testing.assert_allclose(scores, wscores, rtol=0, atol=tol)
+    for r, p in zip(*np.nonzero(ids != wids)):
+        tied = np.abs(wscores[r][wids[r] >= 0] - wscores[r][p]) <= tol
+        assert tied.sum() > 1 or tied[-1], (r, p)
+
+
+@pytest.mark.parametrize("family", ["bm25", "ease"])
+def test_item_item_recommend_on_cuda_matches_cpu(cuda, family):
+    """The card's float64 score product and top-k against the same model's
+    on the CPU, with liked items and filter_items dropped, and items=."""
+    from implicit_tpu_torch.ease import EASERecommender
+    from implicit_tpu_torch.nearest_neighbours import BM25Recommender
+
+    plays = _item_item_plays()
+    cpu = (BM25Recommender(K=20, device="cpu") if family == "bm25"
+           else EASERecommender(K=100, device="cpu"))
+    cpu.fit(plays, show_progress=False)
+    card = type(cpu)(K=cpu.K, device=cuda)
+    card.similarity = cpu.similarity
+    users = np.arange(0, 3000, 7)
+    for kwargs in ({}, {"filter_items": [0, 5, 11]}, {"filter_already_liked_items": False}):
+        _recommend_close(card.recommend(users, plays[users], N=10, **kwargs),
+                         cpu.recommend(users, plays[users], N=10, **kwargs))
+    items = np.array([1, 40, 77, 300, 799])
+    got = card.recommend(3, plays[3], items=items)
+    want = cpu.recommend(3, plays[3], items=items)
+    assert sorted(got[0]) == sorted(want[0]) == sorted(items)
+    np.testing.assert_allclose(got[1][np.argsort(got[0])], want[1][np.argsort(want[0])],
+                               rtol=1e-12)
+
+
+@pytest.mark.parametrize("family", ["bm25-device", "ease"])
+def test_item_item_fits_repeat_bit_for_bit_on_cuda(cuda, monkeypatch, family):
+    from implicit_tpu_torch import nearest_neighbours as nn
+    from implicit_tpu_torch.ease import EASERecommender
+
+    monkeypatch.setattr(nn, "_device_knn_wins", lambda *args, **kwargs: True)
+    plays = _item_item_plays()
+    fits = []
+    for _ in range(2):
+        model = (nn.BM25Recommender(K=20, device=cuda) if family == "bm25-device"
+                 else EASERecommender(K=100, device=cuda))
+        model.fit(plays, show_progress=False)
+        fits.append(model.similarity)
+    assert _same_csr(*fits)
+
+
+def test_device_method_never_runs_the_host_route_on_cuda(cuda, monkeypatch):
+    from implicit_tpu_torch import native
+    from implicit_tpu_torch import nearest_neighbours as nn
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the host route ran")
+
+    monkeypatch.setattr(nn, "_all_pairs_knn_host", refuse)
+    monkeypatch.setattr(native, "knn_all_pairs", refuse)
+    plays = _item_item_plays()
+    weighted = _bm25(plays)
+    assert nn.all_pairs_knn(weighted, 10, method="device", device=cuda).nnz
+    # a fit that the cost rule sends to the device
+    monkeypatch.setattr(nn, "_device_knn_wins", lambda *args, **kwargs: True)
+    nn.BM25Recommender(K=10, device=cuda).fit(plays, show_progress=False)
+    # what the device route cannot take raises instead of running the host
+    weighted.data[0] = -1.0
+    with pytest.raises(ValueError, match="negative"):
+        nn.all_pairs_knn(weighted, 10, method="device", device=cuda)

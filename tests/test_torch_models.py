@@ -394,7 +394,7 @@ def test_port_imports_without_jax():
         "import sys, implicit_tpu_torch, implicit_tpu_torch.convert, "
         "implicit_tpu_torch.evaluation, implicit_tpu_torch.ops.cg_kernels, "
         "implicit_tpu_torch.bpr, implicit_tpu_torch.lmf, implicit_tpu_torch.ops.membership, "
-        "chip_smoke\n"
+        "implicit_tpu_torch.nearest_neighbours, implicit_tpu_torch.ease, chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'implicit_tpu')]\n"
         "assert not bad, bad\n"
     )
