@@ -76,7 +76,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    form checked on 64 columns (weights solved with lam off by 10% must
    fail); batched ``recommend`` from both models against the host
    formulation; clustered p@10 >= 0.85 for BM25 and EASE; the cost rule's
-   measured rates.
+   measured rates;
+7. serving beyond the resident table (torch ops on CUDA streams, events
+   and pinned memory, no kernel of its own): phase 3's f=128 float32 fit
+   serves 64 batches of 1024 users through ``recommend_pipelined`` and 32
+   batches of 1024 items through ``similar_items_pipelined``, which must
+   give the per-batch calls' bits (walls and rows/s of both); a 10M x 128
+   float32 table (5.12 GB, over the 4 GiB residency threshold) drawn on the
+   card and copied to the host serves 1024 filtered queries through
+   ``topk_streaming``, which must equal the resident top-k on the card's
+   copy (ids up to ties at the 10th score, scores within 1e-6 relative)
+   while the same bar rejects the streamed result with its last block
+   dropped; an ALS model holding it routes to the streaming table and
+   serves 8 batches in one pass (walls, GB/s); ``TPUIVFAlternatingLeastSquares
+   (factors=128)`` at the last.fm shape (800 clusters, probe 100): its fit's
+   launches, the k-means build wall, a second build with the same bits,
+   every cluster probed giving the exact model's answer for 64 users,
+   recall@10 at probe 100 over 1024 users, ms per 1024 users approximate and
+   exact; recall@10 > 0.85 on 200,000 x 128 clustered points.
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's name and power limit; the last line is
@@ -938,13 +955,16 @@ def phase_main_path(device, plays):
     add(composed_cg_path(plays, device))
     serve_checks("f=128 float32", f32, plays)
     serve_checks("f=128 bfloat16 int8", quant, plays)
+    # phase 7 serves from the f=128 float32 factors (host arrays: no device
+    # memory is held through phases 4-6)
+    factors = (f32.user_factors, f32.item_factors)
     del f32, quant
     torch.cuda.empty_cache()
     say(3, f"launches over the main paths {totals}")
     missing = [k for k, v in totals.items() if not v]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")
-    return totals
+    return totals, factors
 
 
 def phase_quality(device, **kwargs):
@@ -1613,6 +1633,352 @@ def phase_item_item(device, lastfm):
     say(6, f"phase 6 wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: serving beyond the resident table (torch ops on CUDA streams,
+# events and pinned memory; no kernel: the JAX package composes this path
+# from XLA ops)
+# ---------------------------------------------------------------------------
+
+# streamed or pipelined top-k against the resident one: scores within
+# TOPK_RTOL relative, ids equal up to exact ties at the k-th score
+TOPK_RTOL = 1e-6
+# the IVF index probing every cluster against the exact model: scores within
+# this share of the row's largest |score| (float32 sums in another order)
+IVF_ROW_TOL = 1e-5
+# recall@10 of the IVF index on clustered points: the JAX package's bar
+# (tests/test_ivf.py)
+RECALL_BAR = 0.85
+# the streamed catalog: 10M x 128 float32 (5.12 GB), over the 4 GiB
+# residency threshold on an 80 GB card
+STREAM_ITEMS, STREAM_F = 10_000_000, 128
+# the clustered points of the IVF recall gate: 200,000 x 128, 64 groups
+CLUSTERED_N = 200_000
+
+
+def topk_disagreement(got, want, rtol, row_scale=False):
+    """Row by row, two (Q, k) top-k results ``(ids, scores)``: the largest
+    score difference (relative to each score, or with ``row_scale`` to the
+    row's largest |score|), and the rows whose ids differ beyond ties (an id
+    scoring above the row's k-th score by more than the tolerance missing
+    from the other row)."""
+    gi, gs = (np.atleast_2d(np.asarray(a)) for a in got)
+    wi, ws = (np.atleast_2d(np.asarray(a)) for a in want)
+    if gi.shape != wi.shape:
+        return float("inf"), list(range(wi.shape[0]))
+    if row_scale:
+        scale = np.repeat(np.abs(ws).max(axis=1, keepdims=True), ws.shape[1], axis=1)
+    else:
+        scale = np.abs(ws)
+    scale = np.maximum(scale, np.finfo(np.float32).tiny)
+    err = float(np.max(np.abs(gs.astype(np.float64) - ws) / scale)) if ws.size else 0.0
+    bad = []
+    for r in range(wi.shape[0]):
+        for ids, sc, other in ((gi[r], gs[r], wi[r]), (wi[r], ws[r], gi[r])):
+            kth = sc[-1]
+            clear = ids[sc > kth + rtol * scale[r][-1]]
+            if not np.isin(clear, other).all():
+                bad.append(r)
+                break
+    return err, bad
+
+
+def synced(fn):
+    """``fn()`` and its host-clock seconds, the card synchronized before and
+    after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def bit_differences(got, want):
+    """(batch, rows) of two lists of per-batch (ids, scores) that differ."""
+    if len(got) != len(want):
+        return [("count", len(got), len(want))]
+    out = []
+    for b, ((gi, gs), (wi, ws)) in enumerate(zip(got, want)):
+        rows = np.flatnonzero((np.atleast_2d(gi) != np.atleast_2d(wi)).any(1)
+                              | (np.atleast_2d(gs) != np.atleast_2d(ws)).any(1))
+        if len(rows):
+            out.append((b, rows[:8].tolist()))
+    return out
+
+
+def pipelined_serving(model, plays):
+    """Step 1: phase 3's f=128 float32 model, ``recommend_pipelined`` over 64
+    batches of 1024 users (N=10, liked filtered, max_in_flight=3) and
+    ``similar_items_pipelined`` over 32 batches of 1024 items against a loop
+    of the per-batch calls: the same bits; walls in turns (loop, pipelined,
+    pipelined, loop) and users (items) per second."""
+    users = np.arange(0, plays.shape[0], plays.shape[0] // 65536)[:65536]
+    batches = [users[i : i + 1024] for i in range(0, 65536, 1024)]
+    items = [np.arange(i, i + 1024) for i in range(0, 32 * 1024, 1024)]
+    runs = {
+        "recommend": (
+            lambda: [model.recommend(b, plays[b], N=10) for b in batches],
+            lambda: list(model.recommend_pipelined(((b, plays[b]) for b in batches), N=10,
+                                                   max_in_flight=3)), 65536),
+        "similar_items": (
+            lambda: [model.similar_items(b, N=10) for b in items],
+            lambda: list(model.similar_items_pipelined(items, N=10, max_in_flight=3)),
+            32 * 1024),
+    }
+    out = {}
+    for name, (loop, pipelined, rows) in runs.items():
+        loop()  # warm: the device tables and norms are cached
+        walls = {"loop": [], "pipelined": []}
+        results = {}
+        for which in ("loop", "pipelined", "pipelined", "loop"):
+            res, secs = synced(loop if which == "loop" else pipelined)
+            walls[which].append(secs)
+            results.setdefault(which, res)
+        diff = bit_differences(results["pipelined"], results["loop"])
+        if diff:
+            raise AssertionError(f"{name}_pipelined differs from the per-batch calls: "
+                                 f"(batch, rows) {diff[:4]}")
+        rate = {k: [rows / s for s in v] for k, v in walls.items()}
+        say(7, f"{name}_pipelined, {len(results['loop'])} batches of 1024 (N=10"
+               f"{', liked filtered' if name == 'recommend' else ''}, max_in_flight=3): "
+               f"the per-batch calls' bits; wall s loop {[round(s, 4) for s in walls['loop']]}"
+               f", pipelined {[round(s, 4) for s in walls['pipelined']]}; rows/s loop "
+               f"{[round(r) for r in rate['loop']]}, pipelined "
+               f"{[round(r) for r in rate['pipelined']]}")
+        out[name] = walls
+    return out
+
+
+class PassCounter:
+    """Counts ``topk_streaming`` calls through ``models.mf_base`` and the
+    blocks they read from the host (``ops.topk._host_block``), inside the
+    block only."""
+
+    def __enter__(self):
+        from implicit_tpu_torch.models import mf_base
+        from implicit_tpu_torch.ops import topk
+
+        self.calls, self.blocks = 0, []
+        self._saved = (mf_base.topk_streaming, topk._host_block)
+        stream, block = self._saved
+
+        def counted_stream(*a, **kw):
+            self.calls += 1
+            return stream(*a, **kw)
+
+        def counted_block(items, start, stop, dtype):
+            self.blocks.append((start, stop))
+            return block(items, start, stop, dtype)
+
+        mf_base.topk_streaming, topk._host_block = counted_stream, counted_block
+        return self
+
+    def __exit__(self, *exc):
+        from implicit_tpu_torch.models import mf_base
+        from implicit_tpu_torch.ops import topk
+
+        mf_base.topk_streaming, topk._host_block = self._saved
+
+
+def streaming_serving(device):
+    """Step 2: a 10M x 128 float32 table (5.12 GB, over the 4 GiB residency
+    threshold) drawn on the card and copied to the host once; 1024 queries,
+    N=10, 100 ``filter_items`` and 50 liked items each (half of them among
+    the query's own best items, so the filters change the answer):
+    ``topk_streaming`` against the resident ``topk`` on the card's copy,
+    the same bar rejecting the streamed result with its last block dropped;
+    an ALS model holding the table serves through ``_StreamTable``, and
+    ``recommend_pipelined`` serves 8 batches of 1024 users in one pass."""
+    import torch
+    from scipy.sparse import csr_matrix
+
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+    from implicit_tpu_torch.models import mf_base
+    from implicit_tpu_torch.ops import topk
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    table_dev = torch.randn((STREAM_ITEMS, STREAM_F), generator=gen, device=device)
+    queries = torch.randn((1024, STREAM_F), generator=gen, device=device).cpu().numpy()
+    (table, secs) = synced(lambda: table_dev.cpu().numpy())
+    nbytes = table.nbytes
+    say(7, f"stream table {table.shape} float32, {nbytes / 1e9:.2f} GB, drawn on the card, "
+           f"copied to the host in {secs:.2f} s; residency threshold "
+           f"{mf_base._stream_threshold_bytes(device) / 2**30:.2f} GiB")
+    # each query likes its own 25 best items and 25 at random; filter_items
+    # holds the 26th best of the first 50 queries (their best once the liked
+    # are out) and 50 at random
+    rng = np.random.default_rng(7)
+    best = topk.topk(table_dev, queries, 26)[0]
+    liked_cols = np.concatenate([best[:, :25], rng.integers(0, STREAM_ITEMS, (1024, 25))],
+                                axis=1)
+    liked = csr_matrix((np.ones(liked_cols.size, np.float32),
+                        (np.repeat(np.arange(1024), 50), liked_cols.ravel())),
+                       shape=(1024, STREAM_ITEMS))
+    fi = np.concatenate([best[:50, 25], rng.integers(0, STREAM_ITEMS, 50)])
+    kw = dict(filter_query_items=liked, filter_items=fi)
+
+    topk.topk(table_dev, queries[:8], 10, **kw)  # warm
+    resident, res_s = synced(lambda: topk.topk(table_dev, queries, 10, **kw))
+    with PassCounter() as count:
+        streamed, str_s = synced(
+            lambda: topk.topk_streaming(table, queries, 10, device=device, **kw))
+    err, bad = topk_disagreement(streamed, resident, TOPK_RTOL)
+    if err > TOPK_RTOL or bad:
+        raise AssertionError(f"topk_streaming vs resident: scores {err:.3e}, {len(bad)} rows")
+    for r in range(1024):
+        if np.isin(streamed[0][r], liked_cols[r]).any() or np.isin(streamed[0][r], fi).any():
+            raise AssertionError(f"topk_streaming returned a filtered item in row {r}")
+    last = max(start for start, _ in count.blocks)
+    dropped = topk.topk_streaming(table[:last], queries, 10, device=device, **kw)
+    d_err, d_bad = topk_disagreement(dropped, resident, TOPK_RTOL)
+    if not (d_err > TOPK_RTOL or d_bad):
+        raise AssertionError("the streaming bar passed a result missing its last block")
+    say(7, f"topk_streaming 1024 queries N=10 (100 filter_items, 50 liked each) over "
+           f"{len(count.blocks)} blocks of {count.blocks[0][1]} rows: resident's ids but at "
+           f"ties, scores within {err:.3e} (bar {TOPK_RTOL}); the last block dropped "
+           f"({STREAM_ITEMS - last} rows): {len(d_bad)} rows differ, scores {d_err:.3e}: "
+           f"rejected; wall resident {res_s:.4f} s (table on the card), streamed "
+           f"{str_s:.4f} s, {nbytes / str_s / 1e9:.2f} GB/s of table")
+    del table_dev, best
+    torch.cuda.empty_cache()
+
+    model = AlternatingLeastSquares(factors=STREAM_F, device=device)
+    model.user_factors = rng.standard_normal((8192, STREAM_F), dtype=np.float32)
+    model.item_factors = table
+    route = model._prep_recommend_items(None, None, 10)[2]
+    if not isinstance(route, mf_base._StreamTable) or model._item_factors_dev is not None:
+        raise AssertionError("the ALS model over the 5.12 GB table did not route to streaming")
+    user_liked = csr_matrix((np.ones(8192 * 50, np.float32),
+                             (np.repeat(np.arange(8192), 50),
+                              rng.integers(0, STREAM_ITEMS, 8192 * 50))),
+                            shape=(8192, STREAM_ITEMS))
+    batches = [np.arange(i, i + 1024) for i in range(0, 8192, 1024)]
+    with PassCounter() as count:
+        served, pipe_s = synced(lambda: list(model.recommend_pipelined(
+            ((b, user_liked[b]) for b in batches), N=10)))
+    starts = sorted(start for start, _ in count.blocks)
+    if count.calls != 1 or len(starts) != len(set(starts)) or \
+            sum(stop - start for start, stop in count.blocks) != STREAM_ITEMS:
+        raise AssertionError(f"recommend_pipelined made {count.calls} passes over "
+                             f"{len(starts)} blocks, not one pass")
+    one, one_s = synced(lambda: model.recommend(batches[0], user_liked[batches[0]], N=10))
+    err, bad = topk_disagreement(served[0], one, TOPK_RTOL)
+    if err > TOPK_RTOL or bad or model._item_factors_dev is not None:
+        raise AssertionError(f"recommend_pipelined's first batch vs recommend: {err:.3e}, "
+                             f"{len(bad)} rows")
+    say(7, f"ALS over the streamed table: recommend routes to _StreamTable; "
+           f"recommend_pipelined 8 batches of 1024 users in {count.calls} pass of "
+           f"{len(starts)} blocks, {pipe_s:.4f} s ({8192 / pipe_s:.0f} users/s, "
+           f"{nbytes / pipe_s / 1e9:.2f} GB/s); recommend of its first batch alone "
+           f"{one_s:.4f} s, the same ids but at ties, scores within {err:.3e}")
+    return dict(resident_s=res_s, streamed_s=str_s, pipelined_s=pipe_s)
+
+
+def clustered_points(n, f, groups, rng):
+    """tests/test_ivf.py's clustered points: ``groups`` Gaussian centres (x3)
+    with noise 0.3."""
+    centers = rng.standard_normal((groups, f)).astype(np.float32) * 3
+    pts = centers[rng.integers(0, groups, n)] + rng.standard_normal((n, f)).astype(
+        np.float32) * 0.3
+    return pts.astype(np.float32)
+
+
+def ivf_serving(device, plays):
+    """Step 3: ``TPUIVFAlternatingLeastSquares(factors=128)`` at the last.fm
+    shape (800 clusters, n_probe 100): its fit's kernel launches, the k-means
+    build wall, a second build of the same random_state bit for bit, every
+    cluster probed against the exact model for 64 users, recall@10 at the
+    default probes over 1024 users, ms per 1024 users approximate and exact;
+    then recall@10 > 0.85 on 200,000 x 128 clustered points (64 groups)."""
+    import torch
+
+    from implicit_tpu_torch.ann.ivf import _IVFIndex
+    from implicit_tpu_torch.approximate_als import TPUIVFAlternatingLeastSquares
+    from implicit_tpu_torch.ops import cg_kernels
+
+    model = TPUIVFAlternatingLeastSquares(factors=128, random_state=0, device=device)
+    cg_kernels.reset_launches()
+    _, fit_s = synced(lambda: model.fit(plays, show_progress=False))
+    launches = nonzero(cg_kernels.LAUNCHES)
+    if not launches.get("cg_full_f32") or not launches.get("gramian_cg_f32"):
+        raise AssertionError(f"the IVF model's fit launched {launches}")
+    k, probe = model.recommend_index.centroids.shape[0], model._probe
+    if (k, probe) != (int(2 * np.sqrt(plays.shape[1])), k // 8):  # 800, 100 at last.fm
+        raise AssertionError(f"IVF sized {k} clusters, probe {probe}")
+    first = {**model.similar_items_index.to_arrays("sim__"),
+             **model.recommend_index.to_arrays("rec__")}
+    factors = np.asarray(model.model.item_factors, dtype=np.float32)
+    _, build_s = synced(lambda: model._build_indexes(factors))
+    second = {**model.similar_items_index.to_arrays("sim__"),
+              **model.recommend_index.to_arrays("rec__")}
+    if not all(np.array_equal(first[key], second[key]) for key in first):
+        raise AssertionError("two IVF builds of one random_state differ")
+    say(7, f"IVF ALS f=128 at {plays.shape}: fit (15 iterations + both indexes) {fit_s:.3f} "
+           f"s, launches {launches}; k-means build of both indexes ({k} clusters, 15 "
+           f"iterations) {build_s:.3f} s; a second build of random_state 0 gives the same "
+           f"bits; cap sim {model.similar_items_index.cap}, rec {model.recommend_index.cap}")
+
+    users = np.arange(0, plays.shape[0], plays.shape[0] // 1024)[:1024]
+    liked = plays[users]
+    model._probe = k
+    full, full_s = synced(lambda: model.recommend(users[:64], liked[:64], N=10))
+    model._probe = probe
+    exact64 = model.model.recommend(users[:64], liked[:64], N=10)
+    err, bad = topk_disagreement(full, exact64, IVF_ROW_TOL, row_scale=True)
+    if err > IVF_ROW_TOL or bad:
+        raise AssertionError(f"IVF probing every cluster vs exact: {err:.3e}, {len(bad)} rows")
+    ann_ms, exact_ms = [], []
+    for _ in range(3):
+        approx, secs = synced(lambda: model.recommend(users, liked, N=10))
+        ann_ms.append(secs * 1e3)
+        exact, secs = synced(lambda: model.model.recommend(users, liked, N=10))
+        exact_ms.append(secs * 1e3)
+    recall = np.mean([len(np.intersect1d(a, e)) / 10 for a, e in zip(approx[0], exact[0])])
+    say(7, f"IVF recommend: every cluster probed (64 users) gives the exact ids but at ties, "
+           f"scores within {err:.3e} of the row's largest (bar {IVF_ROW_TOL}), "
+           f"{full_s * 1e3:.1f} ms; n_probe {probe}: recall@10 {recall:.4f} over 1024 users; "
+           f"ms per 1024 users approximate {[round(t, 2) for t in ann_ms]}, exact "
+           f"{[round(t, 2) for t in exact_ms]}")
+
+    pts = clustered_points(CLUSTERED_N, 128, 64, np.random.default_rng(0))
+    unit = pts / np.maximum(np.linalg.norm(pts, axis=1, keepdims=True), 1e-12)
+    n_clusters = int(2 * np.sqrt(len(unit)))
+    (index, build_s) = synced(lambda: _IVFIndex(unit, n_clusters, 15, 3, device))
+    queries = unit[:1024]
+    from implicit_tpu_torch._device import full_f32_matmul
+
+    with full_f32_matmul():
+        U = torch.as_tensor(unit, device=device)
+        exact_ids = torch.topk(U[:1024] @ U.T, 10, dim=1)[1].cpu().numpy()
+    del U
+    (ids, _), search_s = synced(lambda: index.search_batch(queries, 10, n_clusters // 8))
+    c_recall = np.mean([len(np.intersect1d(a, e)) / 10 for a, e in zip(ids, exact_ids)])
+    say(7, f"IVF on clustered points {unit.shape} (64 groups, {n_clusters} clusters, probe "
+           f"{n_clusters // 8}): build {build_s:.3f} s, 1024 queries {search_s * 1e3:.1f} ms, "
+           f"recall@10 {c_recall:.4f} (gate > {RECALL_BAR})")
+    if not c_recall > RECALL_BAR:
+        raise AssertionError(f"IVF recall@10 {c_recall} <= {RECALL_BAR}")
+    del model, index
+    torch.cuda.empty_cache()
+    return dict(recall=recall, clustered_recall=c_recall, launches=launches)
+
+
+def phase_serving(device, plays, factors):
+    """Phase 7: serving beyond the resident table. ``factors`` are phase 3's
+    f=128 float32 fit's (user, item) factors, ``plays`` its data."""
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+
+    t_phase = time.perf_counter()
+    model = AlternatingLeastSquares(factors=128, random_state=0, device=device)
+    model.user_factors, model.item_factors = factors
+    pipelined_serving(model, plays)
+    del model
+    streaming_serving(device)
+    ivf_serving(device, plays)
+    say(7, f"phase 7 wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def kernel_rows(kernels, launches):
     """One row per kernel for the ``{"kernels": [...]}`` line: the main paths'
     launches (all variants), the largest error over every case, the float32
@@ -1710,11 +2076,12 @@ def main():
 
     kernels = phase_kernels(device)
     plays = lastfm_plays()
-    launches = phase_main_path(device, plays)
+    launches, f32_factors = phase_main_path(device, plays)
     phase_quality(device)
     phase_quality(device, gather_quant=True, dtype=np.float16)
     phase_sgd(device, plays)
     phase_item_item(device, plays)
+    phase_serving(device, plays, f32_factors)
 
     print(json.dumps({"kernels": kernel_rows(kernels, launches)}))
     print(gpu_line())

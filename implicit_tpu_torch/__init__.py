@@ -5,7 +5,10 @@ implicit-ALS fit whose per-row conjugate-gradient solves run in hand-written
 CUDA kernels (``ops/csrc``), the SGD families BPR and LMF as torch ops, the
 item-item family (``nearest_neighbours``: Cosine, TF-IDF and BM25 KNN; and
 ``ease``: EASE), whose similarity builds on the card with torch ops or on
-the host with the port's C++, and batched top-k serving. The package
+the host with the port's C++, and batched top-k serving: resident,
+pipelined (``*_pipelined`` on CUDA streams) or streamed from the host for
+tables over the residency threshold, and approximate through ``ann`` (the
+on-device IVF index, ``approximate_als``'s factories). The package
 mirrors ``implicit_tpu``'s module layout and public surface; it imports
 ``torch`` and never ``jax``.
 
@@ -15,8 +18,9 @@ no global torch flag: the port's float32 products pin full float32 each
 (``_device.full_f32_matmul``).
 """
 
-from . import als, bpr, ease, lmf, nearest_neighbours
+from . import als, ann, approximate_als, bpr, ease, lmf, nearest_neighbours
 
 __version__ = "0.1.0"
 
-__all__ = ["als", "bpr", "ease", "lmf", "nearest_neighbours", "__version__"]
+__all__ = ["als", "ann", "approximate_als", "bpr", "ease", "lmf", "nearest_neighbours",
+           "__version__"]

@@ -8,7 +8,8 @@ way round. These helpers do the same for in-memory parameters:
 of numpy values, and :func:`als_from_numpy`, :func:`bpr_from_numpy`,
 :func:`lmf_from_numpy` and :func:`item_item_from_numpy` build a port model
 from such a dict (for example one read from a JAX model's attributes or
-from its npz).
+from its npz); :func:`ivf_from_numpy` builds the IVF wrapper, its indexes
+and its inner model from the dict that ``TPUIVFModel.save`` writes.
 """
 
 import numpy as np
@@ -93,3 +94,14 @@ def item_item_from_numpy(cls_name, params, device="cuda"):
     ``device`` holding ``params``: its hyper-parameters and, when present,
     the similarity's ``shape``/``data``/``indptr``/``indices``."""
     return _ITEM_ITEM[cls_name]._from_params(params, device)
+
+
+def ivf_from_numpy(arrays, device="cuda"):
+    """A port ``TPUIVFModel`` on ``device`` from the dict that either
+    package's ``TPUIVFModel.save`` writes: the inner model's fields under
+    ``model__`` (its class by ``model_class``), the indexes under ``sim__``
+    and ``rec__`` (reordered points, ids, centroids, starts, counts, n,
+    cap), and the wrapper's settings."""
+    from .ann.ivf import TPUIVFModel
+
+    return TPUIVFModel.from_arrays(arrays, device)

@@ -132,7 +132,8 @@ def ranking_metrics_at_k(
 ):
     """Calculates precision@K, MAP@K, NDCG@K and AUC@K for a trained model.
 
-    ``num_threads`` is accepted for API parity; the metric math is
+    Models with ``recommend_pipelined`` stream their batches through it
+    with ``max(2, num_threads)`` batches in flight; the metric math is
     vectorized numpy.
     """
     if not isinstance(train_user_items, csr_matrix):
@@ -174,7 +175,15 @@ def ranking_metrics_at_k(
         to_generate[i : i + batch_size]
         for i in range(0, len(to_generate), batch_size)
     ]
-    stream = (model.recommend(b, train_user_items[b], N=K) for b in batches)
+    if hasattr(model, "recommend_pipelined"):
+        # matrix-factorization models stream: the host metric math of one
+        # batch overlaps the device work and copies of the next
+        stream = model.recommend_pipelined(
+            ((b, train_user_items[b]) for b in batches), N=K,
+            max_in_flight=max(2, int(num_threads)),
+        )
+    else:
+        stream = (model.recommend(b, train_user_items[b], N=K) for b in batches)
 
     for batch, (all_ids, _) in zip(batches, stream):
         for s0 in range(0, len(batch), sub):

@@ -1,24 +1,67 @@
 """Shared serving logic for matrix-factorization models.
 
-The counterpart of ``implicit_tpu/models/mf_base.py`` for factor tables
-resident on one device: recommend / recommend_all / similar_users /
-similar_items with the filter_items / items= / filter_already_liked_items /
-recalculate semantics, norm caches, and a device copy of each factor table
-cached in the serving dtype (bfloat16 for 16-bit models, float32 otherwise).
-Scalar queries are the batch path plus a squeeze at the edge, so batch and
-scalar results agree by construction.
+The counterpart of ``implicit_tpu/models/mf_base.py``: recommend /
+recommend_all / similar_users / similar_items with the filter_items /
+items= / filter_already_liked_items / recalculate semantics, norm caches,
+and a device copy of each factor table cached in the serving dtype
+(bfloat16 for 16-bit models, float32 otherwise). Scalar queries are the
+batch path plus a squeeze at the edge, so batch and scalar results agree
+by construction.
+
+Every call is a dispatch that returns a future and a post-processing step
+(``_recommend_async``, ``_similar_async``); the synchronous calls wait on
+it at once, and the ``*_pipelined`` generators keep several batches in
+flight, so one batch's host work and copies overlap the others' products.
+A factor table larger than the residency threshold
+(:func:`_stream_threshold_bytes`) stays on the host and serves through
+``ops.topk.topk_streaming``; its pipelined generators serve every
+``_STREAM_PASS_ROWS`` buffered query rows in one pass over the table.
 
 Factor matrices live on the host as numpy arrays (the public contract);
 assigning ``user_factors`` / ``item_factors`` drops the device copy.
 """
+
+from collections import deque
 
 import numpy as np
 import torch
 from scipy.sparse import csr_matrix
 
 from .._device import resolve_device
-from ..ops.topk import topk
+from ..ops.topk import _score_budget_elements, _upload, topk_async, topk_streaming
 from ..recommender_base import RecommenderBase
+
+# bound on the buffered query rows of one table pass of the streaming
+# pipelined path: memory stays about rows x (F + k) while the passes drop to
+# ceil(total rows / this) instead of one per batch
+_STREAM_PASS_ROWS = 65536
+
+
+class _StreamTable:
+    """A factor table served through ``ops.topk.topk_streaming``: the host
+    array stays on the host and its row blocks upload per call. Chosen when
+    the table is over the residency threshold."""
+
+    def __init__(self, array):
+        self.array = array
+
+
+class _ReadyFuture:
+    """A TopkFuture-shaped wrapper of results already on the host."""
+
+    def __init__(self, ids, scores):
+        self._out = (ids, scores)
+
+    def result(self):
+        return self._out
+
+
+def _stream_threshold_bytes(device):
+    """Tables above this byte size stream from the host instead of being
+    resident on ``device``: 4 x the score budget (half of the free device
+    memory, capped at 4 GB: 4 GiB on an 80 GB card), the JAX package's rule,
+    so both packages route a table alike."""
+    return 4 * _score_budget_elements(device)
 
 
 def _validate_subset(subset, total, what):
@@ -49,6 +92,52 @@ def _positions_in_subset(items, query_items):
         (coo.data[inside], (coo.row[inside], pos[inside])),
         shape=(query_items.shape[0], len(items)),
     )
+
+
+def _post_recommend(ids, scores, scalar, items):
+    """recommend's post-processing: the scalar squeeze and the items= remap
+    (shared by every route, so their results agree by construction)."""
+    if scalar:
+        ids, scores = ids[0], scores[0]
+    if items is not None:
+        ids = items[ids]
+    return ids, scores
+
+
+def _post_similar(ids, scores, query_norm, scalar, subset):
+    """similar_*'s post-processing: the scalar squeeze, the division by the
+    query's norm (sentinels kept) and the subset remap (-1 kept)."""
+    if scalar:
+        ids, scores = ids[0], scores[0]
+        norm = query_norm
+    else:
+        norm = query_norm[:, None]
+    # -FLT_MAX padding entries stay sentinels (dividing them overflows)
+    np.divide(scores, norm, out=scores, where=ids >= 0)
+    if subset is not None:
+        # short rows pad with id -1: keep it rather than wrapping around
+        ids = np.where(ids >= 0, subset[ids], -1)
+    return ids, scores
+
+
+def _pipeline(dispatches, max_in_flight):
+    """Drains an iterator of ``(future, post)`` pairs through a window of at
+    most ``max_in_flight`` dispatched batches, yielding ``post(*future.
+    result())`` in input order: the engine of every ``*_pipelined`` method."""
+    window = deque()
+    for future, post in dispatches:
+        window.append((future, post))
+        if len(window) >= max_in_flight:
+            f, p = window.popleft()
+            yield p(*f.result())
+    while window:
+        f, p = window.popleft()
+        yield p(*f.result())
+
+
+def _entry(entry):
+    """A recommend_pipelined batch: ``userids`` or ``(userids, user_items)``."""
+    return entry if isinstance(entry, tuple) else (entry, None)
 
 
 class MatrixFactorizationBase(RecommenderBase):
@@ -104,6 +193,15 @@ class MatrixFactorizationBase(RecommenderBase):
         return torch.as_tensor(np.asarray(factors)).to(
             device=self.device, dtype=self._serving_dtype())
 
+    def _table_streams(self, factors):
+        """True when ``factors`` is over the residency threshold, in the
+        serving dtype's bytes."""
+        if factors is None:
+            return False
+        itemsize = 2 if self._serving_dtype() == torch.bfloat16 else 4
+        nbytes = factors.shape[0] * factors.shape[1] * itemsize
+        return nbytes > _stream_threshold_bytes(self.device)
+
     def _user_factors_on_device(self):
         if self._user_factors_dev is None:
             self._user_factors_dev = self._to_serving(self._user_factors)
@@ -113,6 +211,15 @@ class MatrixFactorizationBase(RecommenderBase):
         if self._item_factors_dev is None:
             self._item_factors_dev = self._to_serving(self._item_factors)
         return self._item_factors_dev
+
+    def _serving_table(self, which):
+        """The full user or item table as the top-k reads it: the cached
+        device copy, or a :class:`_StreamTable` over the host array."""
+        host = self.user_factors if which == "user" else self.item_factors
+        if self._table_streams(host):
+            return _StreamTable(host)
+        return (self._user_factors_on_device() if which == "user"
+                else self._item_factors_on_device())
 
     def __getstate__(self):
         # device tensors stay out of pickles; the caches refill on use
@@ -126,12 +233,17 @@ class MatrixFactorizationBase(RecommenderBase):
     def _norms_of(self, factors):
         # norms describe the table the GEMM scores: 16-bit models round
         # through bfloat16 first (so cosine self-similarity stays 1), then
-        # accumulate in float32
-        t = torch.as_tensor(np.asarray(factors))
-        if t.dim() == 1:
-            t = t.reshape(1, -1)
-        t = t.to(self._serving_dtype()).float()
-        norms = torch.linalg.vector_norm(t, dim=-1).numpy()
+        # accumulate in float32. Blockwise, so a memmapped table never
+        # materializes whole
+        if factors.ndim == 1:
+            factors = factors.reshape(1, -1)
+        n = factors.shape[0]
+        norms = np.empty(n, dtype=np.float32)
+        block = max(1, (1 << 26) // max(factors.shape[1], 1))
+        for s in range(0, n, block):
+            t = torch.as_tensor(np.array(factors[s : s + block]))
+            t = t.to(self._serving_dtype()).float()
+            norms[s : s + block] = torch.linalg.vector_norm(t, dim=-1).numpy()
         norms[norms == 0] = 1e-10  # avoid divide-by-zero in similarity scoring
         return norms
 
@@ -155,19 +267,83 @@ class MatrixFactorizationBase(RecommenderBase):
     def recalculate_item(self, itemid, item_users):
         raise NotImplementedError("recalculate_item is not supported with this model")
 
+    def _rows(self, which, ids):
+        """Rows ``ids`` of the user or item table: gathered on the device
+        from the cached copy, or on the host when the table streams (it
+        must never upload whole)."""
+        table = self._serving_table(which)
+        if isinstance(table, _StreamTable):
+            table = table.array
+        return table[ids : ids + 1] if np.isscalar(ids) else table[np.asarray(ids)]
+
     def _user_factor(self, userid, user_items, recalculate_user=False):
         if recalculate_user:
             return self.recalculate_user(userid, user_items)
-        dev = self._user_factors_on_device()
-        return dev[userid : userid + 1] if np.isscalar(userid) else dev[np.asarray(userid)]
+        return self._rows("user", userid)
 
     def _item_factor(self, itemid, item_users, recalculate_item=False):
         if recalculate_item:
             return self.recalculate_item(itemid, item_users)
-        dev = self._item_factors_on_device()
-        return dev[itemid : itemid + 1] if np.isscalar(itemid) else dev[np.asarray(itemid)]
+        return self._rows("item", itemid)
 
     # -- recommend -------------------------------------------------------------
+
+    def _prep_recommend_items(self, items, filter_items, N):
+        """Validates ``items=`` and resolves the scoring table.
+
+        Returns ``(N, items, table)``: the subset's rows on the device in
+        the serving dtype, or the full table (:meth:`_serving_table`); a
+        table over the threshold is a :class:`_StreamTable`. The pipelined
+        generators call it once for the whole stream.
+        """
+        if items is None:
+            return N, None, self._serving_table("item")
+        if filter_items:
+            raise ValueError("Can't set both items and filter_items in recommend call")
+        N = min(N, len(items))
+        items = _validate_subset(items, self.item_factors.shape[0], "itemids")
+        items.sort()
+        subset = self.item_factors[items]
+        if self._table_streams(subset):
+            return N, items, _StreamTable(subset)
+        # subset tables score in the serving dtype, like the full table
+        return N, items, self._to_serving(subset)
+
+    def _recommend_async(self, userid, user_items, N, filter_already_liked_items,
+                         filter_items, recalculate_user, items, prep=None):
+        """Dispatches one recommend batch; returns ``(future, post)``.
+
+        The host work and the device queueing happen here; ``post(ids,
+        scores)`` applies the scalar squeeze and the items= remap once the
+        future is read, so recommend is ``post(*future.result())``. ``prep``
+        is a :meth:`_prep_recommend_items` result made once per stream.
+        """
+        if filter_already_liked_items or recalculate_user:
+            _validate_user_items(userid, user_items)
+
+        user = self._user_factor(userid, user_items, recalculate_user)
+        if prep is None:
+            prep = self._prep_recommend_items(items, filter_items, N)
+        N, items, table = prep
+
+        filter_query_items = None
+        if filter_already_liked_items:
+            filter_query_items = user_items
+            if items is not None:
+                filter_query_items = _positions_in_subset(items, filter_query_items)
+
+        if isinstance(table, _StreamTable):
+            future = _ReadyFuture(*topk_streaming(
+                table.array, user, N, filter_query_items=filter_query_items,
+                filter_items=filter_items, device=self.device))
+        else:
+            future = topk_async(table, user, N, filter_query_items=filter_query_items,
+                                filter_items=filter_items)
+
+        def post(ids, scores):
+            return _post_recommend(ids, scores, np.isscalar(userid), items)
+
+        return future, post
 
     def recommend(
         self,
@@ -179,37 +355,132 @@ class MatrixFactorizationBase(RecommenderBase):
         recalculate_user=False,
         items=None,
     ):
-        if filter_already_liked_items or recalculate_user:
-            _validate_user_items(userid, user_items)
-
-        user = self._user_factor(userid, user_items, recalculate_user)
-
-        if items is not None:
-            if filter_items:
-                raise ValueError("Can't set both items and filter_items in recommend call")
-            N = min(N, len(items))
-            items = _validate_subset(items, self.item_factors.shape[0], "itemids")
-            items.sort()
-            # subset tables score in the serving dtype, like the full table
-            item_factors = self._to_serving(self.item_factors[items])
-        else:
-            item_factors = self._item_factors_on_device()
-
-        filter_query_items = None
-        if filter_already_liked_items:
-            filter_query_items = user_items
-            if items is not None:
-                filter_query_items = _positions_in_subset(items, filter_query_items)
-
-        ids, scores = topk(item_factors, user, N, filter_query_items=filter_query_items,
-                           filter_items=filter_items)
-        if np.isscalar(userid):
-            ids, scores = ids[0], scores[0]
-        if items is not None:
-            ids = items[ids]
-        return ids, scores
+        future, post = self._recommend_async(userid, user_items, N, filter_already_liked_items,
+                                             filter_items, recalculate_user, items)
+        return post(*future.result())
 
     recommend.__doc__ = RecommenderBase.recommend.__doc__
+
+    def recommend_pipelined(
+        self,
+        batches,
+        N=10,
+        filter_already_liked_items=True,
+        filter_items=None,
+        recalculate_user=False,
+        items=None,
+        max_in_flight=3,
+    ):
+        """Batched recommend as a generator: up to ``max_in_flight`` batches
+        are dispatched to the device at once, and each batch's ``(ids,
+        scores)`` is yielded in input order.
+
+        Results equal :meth:`recommend` per batch; the host work, the
+        uploads and the result copies of one batch overlap the others'
+        products. A table over the residency threshold serves every
+        ``_STREAM_PASS_ROWS`` buffered query rows in one pass over it.
+
+        Parameters
+        ----------
+        batches : iterable of userid arrays, or of (userids, user_items)
+            pairs where ``filter_already_liked_items`` / ``recalculate_user``
+            need each batch's interaction rows. Consumed lazily.
+        max_in_flight : int, optional
+            Bound on the batches dispatched at once (device memory grows
+            with it).
+        Other parameters are as in :meth:`recommend`.
+
+        Yields
+        ------
+        (ids, scores) per input batch, in order.
+        """
+        if type(self).recommend is not MatrixFactorizationBase.recommend:
+            # a subclass with its own recommend is not bypassed: serve each
+            # batch through it, with the same results and no pipelining
+            def fallback():
+                for entry in batches:
+                    userid, user_items = _entry(entry)
+                    yield self.recommend(
+                        userid, user_items, N=N,
+                        filter_already_liked_items=filter_already_liked_items,
+                        filter_items=filter_items, recalculate_user=recalculate_user,
+                        items=items)
+
+            return fallback()
+
+        # arguments are checked and the table resolved now, not at the first
+        # next(): bad arguments raise at the call, as in recommend
+        prep = self._prep_recommend_items(items, filter_items, N)
+        if isinstance(prep[2], _StreamTable):
+            return self._recommend_stream_once(batches, prep, filter_already_liked_items,
+                                               filter_items, recalculate_user)
+
+        def dispatches():
+            for entry in batches:
+                userid, user_items = _entry(entry)
+                yield self._recommend_async(userid, user_items, N, filter_already_liked_items,
+                                            filter_items, recalculate_user, items, prep=prep)
+
+        return _pipeline(dispatches(), max_in_flight)
+
+    def _recommend_stream_once(self, batches, prep, filter_already_liked_items, filter_items,
+                               recalculate_user):
+        """recommend_pipelined over a streaming table: batches are buffered
+        up to ``_STREAM_PASS_ROWS`` query rows, and each buffered group is
+        served in one ``topk_streaming`` pass over the host table. Yields
+        per-batch results equal to per-batch recommend."""
+        N, items, table = prep
+        n_cols = len(items) if items is not None else table.array.shape[0]
+
+        def flush(group):
+            # entries: (queries, filter rows, filter cols, rows, scalar)
+            queries = torch.cat([g[0] for g in group])
+            fqi = None
+            if filter_already_liked_items:
+                offsets = np.cumsum([0] + [g[3] for g in group])
+                rows = np.concatenate([g[1] + off for g, off in zip(group, offsets)])
+                cols = np.concatenate([g[2] for g in group])
+                fqi = csr_matrix((np.ones(len(rows), dtype=np.float32), (rows, cols)),
+                                 shape=(offsets[-1], n_cols))
+            all_ids, all_scores = topk_streaming(table.array, queries, N,
+                                                 filter_query_items=fqi,
+                                                 filter_items=filter_items, device=self.device)
+            offset = 0
+            for _, _, _, n_rows, scalar in group:
+                yield _post_recommend(all_ids[offset : offset + n_rows],
+                                      all_scores[offset : offset + n_rows], scalar, items)
+                offset += n_rows
+
+        def gen():
+            group, rows = [], 0
+            for entry in batches:
+                userid, user_items = _entry(entry)
+                if filter_already_liked_items or recalculate_user:
+                    _validate_user_items(userid, user_items)
+                u = _upload(self._user_factor(userid, user_items, recalculate_user),
+                            self.device).float()
+                if u.dim() == 1:  # a scalar recalculate returns one row
+                    u = u.reshape(1, -1)
+                fr = fc = None
+                if filter_already_liked_items:
+                    fq = user_items
+                    if items is not None:
+                        fq = _positions_in_subset(items, fq)
+                    coo = fq.tocoo()
+                    # batches may carry matrices of other widths: ids past
+                    # the catalog filter nothing
+                    keep = coo.col < n_cols
+                    fr = coo.row[keep].astype(np.int64)
+                    fc = coo.col[keep].astype(np.int64)
+                group.append((u, fr, fc, u.shape[0], np.isscalar(userid)))
+                rows += u.shape[0]
+                if rows >= _STREAM_PASS_ROWS:
+                    yield from flush(group)
+                    group, rows = [], 0
+            if group:
+                yield from flush(group)
+
+        return gen()
 
     def recommend_all(
         self,
@@ -251,45 +522,133 @@ class MatrixFactorizationBase(RecommenderBase):
 
     # -- similarity lookups ------------------------------------------------------
 
-    def _similar(self, query_factor, query_norm, table, norms, N, filter_ids, subset,
-                 host_factors):
-        """Cosine top-N of ``query_factor`` against ``table`` (or its subset).
+    def _prep_similar_table(self, which, subset):
+        """The candidate table of similar_* and its norms, ``(table,
+        norms)``: the subset's rows on the device (norms beside them), the
+        full device table with its norms uploaded, or a
+        :class:`_StreamTable` with the host norms. Made once per pipelined
+        stream."""
+        host = self.user_factors if which == "user" else self.item_factors
+        norms = self.user_norms if which == "user" else self.item_norms
+        if subset is not None:
+            host, norms = host[subset], norms[subset]
+            if self._table_streams(host):
+                return _StreamTable(host), norms
+            # in the serving dtype: the norms were taken of the rounded table
+            return self._to_serving(host), _upload(norms, self.device)
+        table = self._serving_table(which)
+        if isinstance(table, _StreamTable):
+            return table, norms
+        return table, _upload(norms, self.device)
 
-        ``table`` is the device copy of ``host_factors``; with ``subset``
-        the candidates are ``host_factors[subset]`` in the serving dtype.
+    def _similar_async(self, query_factor, query_norm, N, filter_ids, subset, prep):
+        """Dispatches one similar_* batch against ``prep`` (a
+        :meth:`_prep_similar_table` result); returns ``(future, post)``.
+
+        Scores are the cosine against the candidates: the product divided
+        by the candidates' norms on the device, then by the query's own
+        norm in ``post``, which also remaps subset ids.
         """
-        if subset is not None:
-            table = self._to_serving(host_factors[subset])
-            norms = norms[subset]
-        ids, scores = topk(table, query_factor, N, item_norms=norms, filter_items=filter_ids)
-        scalar = np.isscalar(query_norm)
-        if scalar:
-            ids, scores = ids[0], scores[0]
-        # -FLT_MAX padding entries stay sentinels (dividing them overflows)
-        np.divide(scores, query_norm if scalar else query_norm[:, None],
-                  out=scores, where=ids >= 0)
-        if subset is not None:
-            # short rows pad with id -1: keep it rather than wrapping around
-            ids = np.where(ids >= 0, subset[ids], -1)
-        return ids, scores
+        table, norms = prep
+        if isinstance(table, _StreamTable):
+            future = _ReadyFuture(*topk_streaming(table.array, query_factor, N,
+                                                  item_norms=norms, filter_items=filter_ids,
+                                                  device=self.device))
+        else:
+            future = topk_async(table, query_factor, N, item_norms=norms,
+                                filter_items=filter_ids)
+
+        def post(ids, scores):
+            return _post_similar(ids, scores, query_norm, np.isscalar(query_norm), subset)
+
+        return future, post
+
+    def _similar_stream_once(self, batches, prep, N, filter_ids, subset, get_query):
+        """similar_*_pipelined over a streaming table: batches are buffered
+        up to ``_STREAM_PASS_ROWS`` query rows, each group served in one
+        ``topk_streaming`` pass (see :meth:`_recommend_stream_once`)."""
+        table, norms = prep
+
+        def flush(group):
+            queries = torch.cat([g[0] for g in group])
+            all_ids, all_scores = topk_streaming(table.array, queries, N, item_norms=norms,
+                                                 filter_items=filter_ids, device=self.device)
+            offset = 0
+            for _, qn, n_rows, scalar in group:
+                yield _post_similar(all_ids[offset : offset + n_rows],
+                                    all_scores[offset : offset + n_rows],
+                                    float(qn[0]) if scalar else qn, scalar, subset)
+                offset += n_rows
+
+        def gen():
+            group, rows = [], 0
+            for b in batches:
+                q, qn = get_query(b)
+                q = _upload(q, self.device).float()
+                scalar = q.dim() == 1
+                if scalar:
+                    q = q.reshape(1, -1)
+                group.append((q, np.atleast_1d(qn), q.shape[0], scalar))
+                rows += q.shape[0]
+                if rows >= _STREAM_PASS_ROWS:
+                    yield from flush(group)
+                    group, rows = [], 0
+            if group:
+                yield from flush(group)
+
+        return gen()
+
+    def _similar(self, which, query_factor, query_norm, N, filter_ids, subset):
+        """Shared core of similar_users / similar_items."""
+        future, post = self._similar_async(query_factor, query_norm, N, filter_ids, subset,
+                                           self._prep_similar_table(which, subset))
+        return post(*future.result())
 
     def similar_users(self, userid, N=10, filter_users=None, users=None):
-        norms = self.user_norms
         if users is not None:
             if filter_users:
                 raise ValueError("Can't set both users and filter_users in similar_users call")
             users = _validate_subset(users, self.user_factors.shape[0], "userids")
-        return self._similar(
-            self.user_factors[userid], norms[userid], self._user_factors_on_device(), norms,
-            N, filter_users, users, self.user_factors)
+        return self._similar("user", self.user_factors[userid], self.user_norms[userid], N,
+                             filter_users, users)
 
     similar_users.__doc__ = RecommenderBase.similar_users.__doc__
+
+    def similar_users_pipelined(self, batches, N=10, filter_users=None, users=None,
+                                max_in_flight=3):
+        """Batched similar_users as a generator over userid batches: the
+        user-side twin of :meth:`similar_items_pipelined`; results equal
+        per-batch calls."""
+        if type(self).similar_users is not MatrixFactorizationBase.similar_users:
+            def fallback():
+                for userid in batches:
+                    yield self.similar_users(userid, N=N, filter_users=filter_users,
+                                             users=users)
+
+            return fallback()
+
+        # arguments checked and the table resolved now (see recommend_pipelined)
+        if users is not None:
+            if filter_users:
+                raise ValueError("Can't set both users and filter_users in similar_users call")
+            users = _validate_subset(users, self.user_factors.shape[0], "userids")
+        norms = self.user_norms
+        prep = self._prep_similar_table("user", users)
+        if isinstance(prep[0], _StreamTable):
+            return self._similar_stream_once(batches, prep, N, filter_users, users,
+                                             lambda b: (self.user_factors[b], norms[b]))
+
+        def dispatches():
+            for userid in batches:
+                yield self._similar_async(self.user_factors[userid], norms[userid], N,
+                                          filter_users, users, prep)
+
+        return _pipeline(dispatches(), max_in_flight)
 
     def similar_items(
         self, itemid, N=10, recalculate_item=False, item_users=None, filter_items=None, items=None
     ):
         factor = self._item_factor(itemid, item_users, recalculate_item)
-        norms = self.item_norms
 
         if recalculate_item:
             # freshly solved factors aren't covered by the cached norms
@@ -300,17 +659,52 @@ class MatrixFactorizationBase(RecommenderBase):
                 norm = np.linalg.norm(factor, axis=1)
                 norm[norm == 0] = 1e-10
         else:
-            norm = norms[itemid]
+            norm = self.item_norms[itemid]
 
         if items is not None:
             if filter_items:
                 raise ValueError("Can't set both items and filter_items in similar_items call")
             items = _validate_subset(items, self.item_factors.shape[0], "itemids")
 
-        return self._similar(factor, norm, self._item_factors_on_device(), norms, N,
-                             filter_items, items, self.item_factors)
+        return self._similar("item", factor, norm, N, filter_items, items)
 
     similar_items.__doc__ = RecommenderBase.similar_items.__doc__
+
+    def similar_items_pipelined(self, batches, N=10, filter_items=None, items=None,
+                                max_in_flight=3):
+        """Batched similar_items as a generator over itemid batches: up to
+        ``max_in_flight`` batches dispatched at once, each batch's ``(ids,
+        scores)`` yielded in input order, equal to per-batch
+        :meth:`similar_items` (see :meth:`recommend_pipelined`). The bulk
+        export of similar items over a whole catalog is its intended use.
+        ``recalculate_item`` is not supported here; use the synchronous
+        call.
+        """
+        if type(self).similar_items is not MatrixFactorizationBase.similar_items:
+            def fallback():
+                for itemid in batches:
+                    yield self.similar_items(itemid, N=N, filter_items=filter_items,
+                                             items=items)
+
+            return fallback()
+
+        # arguments checked and the table resolved now (see recommend_pipelined)
+        if items is not None:
+            if filter_items:
+                raise ValueError("Can't set both items and filter_items in similar_items call")
+            items = _validate_subset(items, self.item_factors.shape[0], "itemids")
+        norms = self.item_norms
+        prep = self._prep_similar_table("item", items)
+        if isinstance(prep[0], _StreamTable):
+            return self._similar_stream_once(batches, prep, N, filter_items, items,
+                                             lambda b: (self.item_factors[b], norms[b]))
+
+        def dispatches():
+            for itemid in batches:
+                yield self._similar_async(self._item_factor(itemid, None), norms[itemid], N,
+                                          filter_items, items, prep)
+
+        return _pipeline(dispatches(), max_in_flight)
 
     # -- persistence -------------------------------------------------------------
 

@@ -1,6 +1,6 @@
 """Batched brute-force scored top-k with filtering — the serving engine.
 
-The counterpart of ``implicit_tpu/ops/topk.py`` (resident tables only):
+The counterpart of ``implicit_tpu/ops/topk.py``:
 
     scores = queries @ items.T        (float32 GEMM)
     scores /= item_norms              (optional)
@@ -11,17 +11,39 @@ Filtered entries get ``-FLT_MAX`` (not -inf), so they can still round out
 results when fewer than k candidates survive; if k exceeds the number of
 items, the tail pads with id -1 / score -FLT_MAX. Queries run in chunks
 whose score matrix fits a memory budget.
+
+The entry points share that core:
+
+- :func:`topk_async` scores a resident table and returns a
+  :class:`TopkFuture`: each chunk's ids and scores are copied to pinned
+  host buffers without blocking, and ``result()`` waits on each chunk's
+  CUDA event before it reads the buffers. :func:`topk` is
+  ``topk_async(...).result()``.
+- :func:`topk_streaming` serves a table that stays on the host (numpy or a
+  memmap): row blocks go through two pinned staging buffers and upload on a
+  copy stream while the compute stream scores the previous block, and a
+  running (Q, k) candidate set merges per block.
+
+The JAX package pads shapes to buckets (``_pad_dim``) to keep its jit cache
+warm; nothing is compiled here, so the port scores the exact shapes. Only
+the order among exactly tied scores can differ from the JAX package's
+(``torch.topk`` promises no order among ties).
 """
 
 import numpy as np
 import torch
 
-from .._device import full_f32_matmul
+from .._device import full_f32_matmul, resolve_device
 
 NEG_MAX = -float(np.finfo(np.float32).max)
 
 # score-matrix elements per query chunk on the CPU (256 MB of float32)
 _MAX_SCORE_ELEMENTS_CPU = 1 << 26
+
+# chunks of one topk_async call whose results may still be in flight; older
+# ones are drained into the output arrays, which bounds the device memory a
+# huge query batch holds to a few chunks' results
+_MAX_IN_FLIGHT = 4
 
 
 def _score_budget_elements(device):
@@ -46,6 +68,23 @@ def _scoring_table(items):
     return items if items.dtype == torch.float32 else items.float()
 
 
+def _upload(array, device):
+    """A host array or tensor on ``device`` without waiting for the
+    device's queue; a tensor already there is returned as it is.
+
+    A plain copy from pageable memory synchronizes the stream, which would
+    stall the host until every product already queued has run; a copy from
+    pinned memory with ``non_blocking=True`` is queued behind them instead
+    (PyTorch's pinned allocator keeps the buffer until the copy is done).
+    """
+    t = torch.as_tensor(array)
+    if t.device == device:
+        return t
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _topk_core(items, queries, norms, qf_rows, qf_cols, filter_items, k):
     """Scores one query chunk and selects its top k.
 
@@ -66,6 +105,59 @@ def _topk_core(items, queries, norms, qf_rows, qf_cols, filter_items, k):
     return torch.topk(scores, k, dim=1)
 
 
+def _topk_merge(vals_a, ids_a, vals_b, ids_b, k):
+    """Merges two candidate sets (Q, ka) and (Q, kb) into the top k."""
+    vals, pos = torch.topk(torch.cat([vals_a, vals_b], dim=1), k, dim=1)
+    return vals, torch.gather(torch.cat([ids_a, ids_b], dim=1), 1, pos)
+
+
+def _pad_results(ids, scores, k):
+    """Pads (Q, k_eff) results to k columns with id -1 / score -FLT_MAX."""
+    pad = k - ids.shape[1]
+    if pad <= 0:
+        return ids, scores
+    q_rows = ids.shape[0]
+    return (np.concatenate([ids, np.full((q_rows, pad), -1, dtype=np.int32)], axis=1),
+            np.concatenate([scores, np.full((q_rows, pad), NEG_MAX, dtype=np.float32)],
+                           axis=1))
+
+
+class TopkFuture:
+    """A top-k result queued on the device and not yet read.
+
+    Returned by :func:`topk_async`. Each pending chunk holds its device
+    results, the pinned host buffers they are being copied into, and the
+    CUDA event recorded after the copies; :meth:`result` waits on each
+    event before it reads the buffers, and returns the ``(ids, scores)``
+    numpy arrays :func:`topk` would have returned. Work queued by later
+    calls runs on the device meanwhile: the building block of pipelined
+    serving (``MatrixFactorizationBase.recommend_pipelined``).
+    """
+
+    def __init__(self, pending, ids_out, scores_out, k):
+        self._pending = pending
+        self._ids_out = ids_out
+        self._scores_out = scores_out
+        self._k = k
+        self._result = None
+
+    def _drain(self, limit):
+        """Reads the oldest chunks into the output arrays until at most
+        ``limit`` remain in flight."""
+        while len(self._pending) > limit:
+            start, stop, event, ids, vals, _ = self._pending.pop(0)
+            if event is not None:
+                event.synchronize()  # the copies into the pinned buffers are done
+            self._ids_out[start:stop] = ids.numpy()
+            self._scores_out[start:stop] = vals.numpy()
+
+    def result(self):
+        if self._result is None:
+            self._drain(0)
+            self._result = _pad_results(self._ids_out, self._scores_out, self._k)
+        return self._result
+
+
 def topk(items, query, k, item_norms=None, filter_query_items=None, filter_items=None,
          num_threads=0):
     """Return the top ``k`` scoring item (ids, scores) for each query row.
@@ -75,7 +167,8 @@ def topk(items, query, k, item_norms=None, filter_query_items=None, filter_items
     items : (N, F) torch tensor — item factors on the serving device
         (float32, or bfloat16 for 16-bit models).
     query : (Q, F) or (F,) tensor or array — query factors; rounded to the
-        table's dtype before scoring.
+        table's dtype before scoring. A tensor on the table's device stays
+        there.
     k : int
     item_norms : (N,) tensor or array, optional — scores are divided by these
     filter_query_items : csr_matrix, optional — per-query items to exclude
@@ -87,30 +180,48 @@ def topk(items, query, k, item_norms=None, filter_query_items=None, filter_items
     (ids, scores) : (Q, k) int32 / float32 numpy arrays. If k exceeds the
     number of items, the tail is padded with id -1 / score -FLT_MAX.
     """
+    return topk_async(items, query, k, item_norms=item_norms,
+                      filter_query_items=filter_query_items,
+                      filter_items=filter_items, num_threads=num_threads).result()
+
+
+def topk_async(items, query, k, item_norms=None, filter_query_items=None, filter_items=None,
+               num_threads=0):
+    """Like :func:`topk`, but returns a :class:`TopkFuture` without waiting.
+
+    Every chunk's product, filters and selection are queued on the current
+    stream, then its ids and scores are copied into pinned host buffers
+    with ``non_blocking=True`` and an event is recorded. At most
+    ``_MAX_IN_FLIGHT`` chunks stay in flight: older ones are read into the
+    output arrays before the next is queued. On the CPU every step runs at
+    once and the future only holds the arrays.
+    """
     device = items.device
-    query = torch.as_tensor(query, device=device)
+    query = torch.as_tensor(query)
     if query.dim() == 1:
         query = query.reshape(1, -1)
     q_rows = query.shape[0]
     n_items = items.shape[0]
     if k <= 0:
-        return (np.empty((q_rows, 0), dtype=np.int32),
-                np.empty((q_rows, 0), dtype=np.float32))
+        return TopkFuture([], np.empty((q_rows, 0), dtype=np.int32),
+                          np.empty((q_rows, 0), dtype=np.float32), 0)
     k_eff = max(1, min(int(k), n_items))
 
-    query = query.to(items.dtype)
+    # queries on the host upload once, queries on the device stay there;
+    # float32 first, then the table's dtype, as the JAX package rounds them
+    query = _upload(query, device).float().to(items.dtype)
     table = _scoring_table(items)
     norms = None
     if item_norms is not None:
-        norms = torch.as_tensor(item_norms, dtype=torch.float32, device=device)
+        norms = _upload(torch.as_tensor(item_norms, dtype=torch.float32), device)
     fi = None
     if filter_items is not None and len(filter_items) > 0:
         fi = np.asarray(filter_items, dtype=np.int64)
-        fi = torch.as_tensor(fi[(fi >= 0) & (fi < n_items)], device=device)
+        fi = _upload(fi[(fi >= 0) & (fi < n_items)], device)
 
     chunk = max(1, min(q_rows, _score_budget_elements(device) // max(n_items, 1)))
-    ids_out = np.empty((q_rows, k_eff), dtype=np.int32)
-    scores_out = np.empty((q_rows, k_eff), dtype=np.float32)
+    future = TopkFuture([], np.empty((q_rows, k_eff), dtype=np.int32),
+                        np.empty((q_rows, k_eff), dtype=np.float32), k)
     for start in range(0, q_rows, chunk):
         stop = min(start + chunk, q_rows)
         qf_rows = qf_cols = None
@@ -119,15 +230,217 @@ def topk(items, query, k, item_norms=None, filter_query_items=None, filter_items
             cols = np.asarray(sub.indices, dtype=np.int64)
             rows = np.repeat(np.arange(stop - start, dtype=np.int64), np.diff(sub.indptr))
             keep = (cols >= 0) & (cols < n_items)
-            qf_rows = torch.as_tensor(rows[keep], device=device)
-            qf_cols = torch.as_tensor(cols[keep], device=device)
+            qf_rows = _upload(rows[keep], device)
+            qf_cols = _upload(cols[keep], device)
         vals, idx = _topk_core(table, query[start:stop], norms, qf_rows, qf_cols, fi, k_eff)
-        ids_out[start:stop] = idx.to(torch.int32).cpu().numpy()
-        scores_out[start:stop] = vals.cpu().numpy()
-    if k_eff < k:
-        pad = k - k_eff
-        ids_out = np.concatenate(
-            [ids_out, np.full((q_rows, pad), -1, dtype=np.int32)], axis=1)
-        scores_out = np.concatenate(
-            [scores_out, np.full((q_rows, pad), NEG_MAX, dtype=np.float32)], axis=1)
-    return ids_out, scores_out
+        idx = idx.to(torch.int32)
+        if device.type == "cuda":
+            ids_h = torch.empty(idx.shape, dtype=torch.int32, pin_memory=True)
+            vals_h = torch.empty(vals.shape, dtype=torch.float32, pin_memory=True)
+            ids_h.copy_(idx, non_blocking=True)
+            vals_h.copy_(vals, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            # the device results ride along until the event has been waited on
+            future._pending.append((start, stop, event, ids_h, vals_h, (idx, vals)))
+        else:
+            future._pending.append((start, stop, None, idx, vals, None))
+        future._drain(_MAX_IN_FLIGHT - 1)
+    return future
+
+
+def _table_dtype(items):
+    """Scoring dtype of a host table: 16-bit float tables (float16, or
+    bfloat16 arrays) stream and score in bfloat16, everything else in
+    float32 — the JAX package's ``_table_dtype``."""
+    dtype = getattr(items, "dtype", None)
+    if dtype in (torch.float16, torch.bfloat16):
+        return torch.bfloat16
+    if isinstance(dtype, np.dtype) and dtype.itemsize == 2 and dtype.kind in "fV":
+        return torch.bfloat16
+    return torch.float32
+
+
+def _host_block(items, start, stop, dtype):
+    """Rows ``start:stop`` of a host table as a CPU tensor of ``dtype``.
+
+    A bfloat16 numpy array (an extension dtype numpy cannot convert) is
+    reinterpreted through its 16-bit words; float16 rounds to bfloat16 to
+    nearest even, as the JAX package's ``astype`` does. Rows of a read-only
+    memmap are read into an array of their own.
+    """
+    block = items[start:stop]
+    if isinstance(block, torch.Tensor):
+        return block.to(dtype)
+    block = np.asarray(block)
+    if not block.flags.writeable:  # a read-only memmap: torch wants its own copy
+        block = np.array(block)
+    if block.dtype.itemsize == 2 and block.dtype.kind == "V":
+        return torch.from_numpy(np.ascontiguousarray(block).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(block)).to(dtype)
+
+
+class _BlockStream:
+    """Uploads a host table's row blocks through two pinned staging buffers.
+
+    On CUDA the copies run on a side stream: block ``b``'s copy waits for
+    the event recorded after the products that read block ``b - 2`` (the
+    device buffer it overwrites), and the compute stream waits for the
+    copy's event before it scores the block, so block ``b + 1``'s upload
+    overlaps block ``b``'s product. The host refills a staging buffer only
+    after the copy that read it has finished. On the CPU a block is used
+    where it lies.
+    """
+
+    def __init__(self, block_rows, F, dtype, with_norms, device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        if not self.cuda:
+            return
+        self.compute = torch.cuda.current_stream(device)
+        self.copy = torch.cuda.Stream(device)
+        self.host = [torch.empty((block_rows, F), dtype=dtype, pin_memory=True)
+                     for _ in range(2)]
+        self.dev = [torch.empty((block_rows, F), dtype=dtype, device=device)
+                    for _ in range(2)]
+        self.host_norms = self.dev_norms = None
+        if with_norms:
+            self.host_norms = [torch.empty(block_rows, dtype=torch.float32, pin_memory=True)
+                               for _ in range(2)]
+            self.dev_norms = [torch.empty(block_rows, dtype=torch.float32, device=device)
+                              for _ in range(2)]
+        for t in self.dev + (self.dev_norms or []):
+            t.record_stream(self.copy)  # written there, freed on the compute stream
+        self.uploaded = [None, None]  # copy of the slot's last block done
+        self.consumed = [None, None]  # products that read the slot's block done
+
+    def upload(self, b, block, norms):
+        """Block ``b`` (a CPU tensor) and its norms (or None) on the device."""
+        if not self.cuda:
+            return block, norms
+        slot, rows = b % 2, block.shape[0]
+        if self.uploaded[slot] is not None:
+            self.uploaded[slot].synchronize()  # the staging buffer was read
+        self.host[slot][:rows].copy_(block)
+        if norms is not None:
+            self.host_norms[slot][:rows].copy_(norms)
+        with torch.cuda.stream(self.copy):
+            if self.consumed[slot] is not None:
+                self.copy.wait_event(self.consumed[slot])
+            self.dev[slot][:rows].copy_(self.host[slot][:rows], non_blocking=True)
+            if norms is not None:
+                self.dev_norms[slot][:rows].copy_(self.host_norms[slot][:rows],
+                                                  non_blocking=True)
+            self.uploaded[slot] = torch.cuda.Event()
+            self.uploaded[slot].record(self.copy)
+        self.compute.wait_event(self.uploaded[slot])
+        return (self.dev[slot][:rows],
+                None if norms is None else self.dev_norms[slot][:rows])
+
+    def scored(self, b):
+        """Marks block ``b``'s products as queued: its device buffer may be
+        refilled once they have run."""
+        if self.cuda:
+            self.consumed[b % 2] = torch.cuda.Event()
+            self.consumed[b % 2].record(self.compute)
+
+
+def topk_streaming(items, query, k, item_norms=None, filter_query_items=None,
+                   filter_items=None, block_rows=None, num_threads=0, q_chunk_rows=None,
+                   device="cuda"):
+    """Exact top-k over an item table that stays on the host.
+
+    The serving path for catalogs whose factor table is too large to keep
+    on the device: ``items`` is a numpy array or anything sliceable to one
+    (a memmap), and its row blocks upload one after the other
+    (:class:`_BlockStream`) while a running (Q, k) candidate set merges
+    per block through ``torch.topk``. Results equal :func:`topk` on the
+    resident table up to the order of exact ties: the same filters and
+    -FLT_MAX sentinels, and the same padding past the item count.
+
+    ``block_rows`` defaults from the score budget, bounding both the score
+    matrix (queries x block) and the block itself (block x F), and is at
+    least the number of results, so every block returns only real
+    candidates. Queries run in chunks of ``q_chunk_rows`` (default: the
+    budget over the block) inside each block, so a batch of any size
+    passes over the table once. 16-bit tables stream in bfloat16 and score
+    in float32. ``device`` is where the products run (CUDA unless the
+    caller asks for the CPU).
+    """
+    device = resolve_device(device)
+    query = torch.as_tensor(query)
+    if query.dim() == 1:
+        query = query.reshape(1, -1)
+    q_rows, F = query.shape
+    n_items = items.shape[0]
+    if k <= 0:
+        return (np.empty((q_rows, 0), dtype=np.int32),
+                np.empty((q_rows, 0), dtype=np.float32))
+    k_eff = max(1, min(int(k), n_items))
+
+    table_dt = _table_dtype(items)
+    budget = _score_budget_elements(device)
+    if block_rows is None:
+        block_rows = max(1024, min(budget // max(min(q_rows, 8192), 1), budget // max(F, 1)))
+    block_rows = int(min(max(block_rows, k_eff), n_items))
+    if q_chunk_rows is None:
+        q_chunk_rows = budget // block_rows
+    q_chunk = max(1, min(q_rows, int(q_chunk_rows)))
+    chunks = [(c0, min(c0 + q_chunk, q_rows)) for c0 in range(0, q_rows, q_chunk)]
+
+    # the queries as the table's dtype scores them, uploaded once
+    query = _upload(query, device).float().to(table_dt)
+
+    fi = (np.asarray(filter_items, dtype=np.int64)
+          if filter_items is not None and len(filter_items) > 0 else None)
+    qf_row = qf_col = None
+    if filter_query_items is not None:
+        coo = filter_query_items.tocoo()
+        # by column: each block's pairs are one run
+        order = np.argsort(coo.col, kind="stable")
+        qf_row = coo.row[order].astype(np.int64)
+        qf_col = coo.col[order].astype(np.int64)
+
+    stream = _BlockStream(block_rows, F, table_dt, item_norms is not None, device)
+    running = [None] * len(chunks)  # (vals, ids) per query chunk, on the device
+    for b, start in enumerate(range(0, n_items, block_rows)):
+        stop = min(start + block_rows, n_items)
+        norms = None
+        if item_norms is not None:
+            norms = torch.from_numpy(np.asarray(item_norms[start:stop], dtype=np.float32))
+        block, norms = stream.upload(b, _host_block(items, start, stop, table_dt), norms)
+        block = _scoring_table(block)
+
+        fi_dev = None
+        if fi is not None:
+            in_block = fi[(fi >= start) & (fi < stop)] - start
+            if len(in_block):
+                fi_dev = _upload(in_block, device)
+        blk_rows = blk_cols = None
+        if qf_col is not None:
+            lo, hi = np.searchsorted(qf_col, [start, stop])
+            blk_rows, blk_cols = qf_row[lo:hi], qf_col[lo:hi] - start
+            # re-sort by row so each chunk's pairs are one run
+            by_row = np.argsort(blk_rows, kind="stable")
+            blk_rows, blk_cols = blk_rows[by_row], blk_cols[by_row]
+
+        for ci, (c0, c1) in enumerate(chunks):
+            qf_rows = qf_cols = None
+            if blk_rows is not None:
+                lo, hi = np.searchsorted(blk_rows, [c0, c1])
+                if hi > lo:
+                    qf_rows = _upload(blk_rows[lo:hi] - c0, device)
+                    qf_cols = _upload(blk_cols[lo:hi], device)
+            vals, idx = _topk_core(block, query[c0:c1], norms, qf_rows, qf_cols, fi_dev,
+                                   min(k_eff, stop - start))
+            ids = idx + start
+            running[ci] = ((vals, ids) if running[ci] is None
+                           else _topk_merge(*running[ci], vals, ids, k_eff))
+        stream.scored(b)
+
+    ids = np.empty((q_rows, k_eff), dtype=np.int32)
+    vals = np.empty((q_rows, k_eff), dtype=np.float32)
+    for (c0, c1), (v, i) in zip(chunks, running):
+        ids[c0:c1] = i.to(torch.int32).cpu().numpy()
+        vals[c0:c1] = v.cpu().numpy()
+    return _pad_results(ids, vals, k)

@@ -42,6 +42,18 @@ def check_random_state(random_state):
     return np.random.default_rng(random_state)
 
 
+def augment_inner_product_matrix(factors):
+    """Transform factors so angular NN search over the result ranks by inner product.
+
+    Appends one dimension per row so every row has the same L2 norm (the
+    "Xbox" Euclidean transformation). Returns (max_norm, augmented_factors).
+    """
+    norms = np.linalg.norm(factors, axis=1)
+    max_norm = norms.max()
+    extra_dimension = np.sqrt(np.maximum(max_norm**2 - norms**2, 0))
+    return max_norm, np.append(factors, extra_dimension.reshape(norms.shape[0], 1), axis=1)
+
+
 def _batch_call(func, ids, *args, N=10, id_dtype=np.int32, score_dtype=np.float32, **kwargs):
     """Runs a scalar-only query function once per id and stacks the results.
 

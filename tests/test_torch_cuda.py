@@ -855,3 +855,136 @@ def test_device_method_never_runs_the_host_route_on_cuda(cuda, monkeypatch):
     weighted.data[0] = -1.0
     with pytest.raises(ValueError, match="negative"):
         nn.all_pairs_knn(weighted, 10, method="device", device=cuda)
+
+
+# -- serving beyond the resident table: streams, events, pinned buffers, IVF ----
+
+
+def _serving_case(n_items, F, q, seed):
+    from scipy.sparse import random as sparse_random
+
+    rng = np.random.default_rng(seed)
+    items = rng.standard_normal((n_items, F), dtype=np.float32)
+    queries = rng.standard_normal((q, F), dtype=np.float32)
+    liked = sparse_random(q, n_items, density=20 / n_items, random_state=rng, format="csr")
+    fi = rng.choice(n_items, 50, replace=False)
+    return items, queries, liked, fi
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16], ids=["f32", "f16"])
+def test_topk_streaming_many_blocks_on_cuda_matches_resident(cuda, dtype):
+    """69 blocks through the two staging buffers and the copy stream, three
+    query chunks per block, both filters and norms: the resident top-k's ids
+    up to ties and its scores within 1e-6; the same on the CPU path. A
+    staging buffer refilled before its product ran would show here."""
+    from chip_smoke import topk_disagreement
+
+    from implicit_tpu_torch.ops import topk
+
+    items, queries, liked, fi = _serving_case(70_000, 32, 300, seed=1)
+    items = items.astype(dtype)
+    norms = np.linalg.norm(items.astype(np.float32), axis=1)
+    kw = dict(item_norms=norms, filter_query_items=liked, filter_items=fi)
+    got = topk.topk_streaming(items, queries, 10, block_rows=1024, q_chunk_rows=128,
+                              device=cuda, **kw)
+    table = torch.as_tensor(items.astype(np.float32), device=cuda)
+    resident = topk.topk(table.to(torch.bfloat16) if dtype == np.float16 else table,
+                         queries, 10, **kw)
+    cpu = topk.topk_streaming(items, queries, 10, block_rows=1024, q_chunk_rows=128,
+                              device="cpu", **kw)
+    for want in (resident, cpu):
+        err, bad = topk_disagreement(got, want, 1e-6)
+        assert err <= 1e-6 and not bad, (err, bad[:5])
+    assert not np.isin(got[0], fi).any()
+    # the same call again: the same bits
+    again = topk.topk_streaming(items, queries, 10, block_rows=1024, q_chunk_rows=128,
+                                device=cuda, **kw)
+    assert np.array_equal(got[0], again[0]) and np.array_equal(got[1], again[1])
+
+
+def test_topk_futures_in_flight_on_cuda(cuda, monkeypatch):
+    """Several topk_async futures in flight at once, each of 25 chunks
+    (more than _MAX_IN_FLIGHT), read in another order than queued: each
+    equals topk's bits in one chunk, and the CPU's within 1e-5."""
+    from chip_smoke import topk_disagreement
+
+    from implicit_tpu_torch.ops import topk
+
+    items, queries, liked, fi = _serving_case(20_000, 64, 400, seed=2)
+    table = torch.as_tensor(items, device=cuda)
+    kws = [dict(filter_query_items=liked), dict(filter_items=fi), {},
+           dict(item_norms=np.linalg.norm(items, axis=1))]
+    want = [topk.topk(table, queries, 10, **kw) for kw in kws]
+    monkeypatch.setattr(topk, "_score_budget_elements", lambda device: 16 * 20_000)
+    futures = [topk.topk_async(table, queries, 10, **kw) for kw in kws]
+    for future, w, kw in reversed(list(zip(futures, want, kws))):
+        got = future.result()
+        err, bad = topk_disagreement(got, w, 1e-6)
+        assert err <= 1e-6 and not bad
+        err, bad = topk_disagreement(got, topk.topk(torch.as_tensor(items), queries, 10, **kw),
+                                     1e-5)
+        assert err <= 1e-5 and not bad
+
+
+def test_pipelined_serving_on_cuda_equals_per_batch_calls(cuda):
+    """recommend_pipelined and similar_items_pipelined with 3 batches in
+    flight: the per-batch calls' bits, on a model whose tables live on the
+    card."""
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+
+    plays = _item_item_plays()
+    model = AlternatingLeastSquares(factors=48, iterations=2, random_state=3, device=cuda)
+    model.fit(plays, show_progress=False)
+    batches = [np.arange(s, s + 250) for s in range(0, 3000, 250)]
+    got = list(model.recommend_pipelined(((b, plays[b]) for b in batches), N=10,
+                                         max_in_flight=3))
+    for b, (ids, scores) in zip(batches, got, strict=True):
+        want = model.recommend(b, plays[b], N=10)
+        assert np.array_equal(ids, want[0]) and np.array_equal(scores, want[1])
+    items = [np.arange(s, s + 100) for s in range(0, 800, 100)]
+    got = list(model.similar_items_pipelined(items, N=5, max_in_flight=3))
+    for b, (ids, scores) in zip(items, got, strict=True):
+        want = model.similar_items(b, N=5)
+        assert np.array_equal(ids, want[0]) and np.array_equal(scores, want[1])
+
+
+def test_kmeans_on_cuda_repeats_and_matches_cpu(cuda):
+    """Two k-means builds on the card give the same bits (the fixed-order
+    scatter); a card build of one small index has the CPU build's layout
+    (the same assignment) and centroids within 1e-5."""
+    from implicit_tpu_torch.ann.ivf import _IVFIndex, _kmeans_run
+
+    rng = np.random.default_rng(4)
+    centers = rng.standard_normal((16, 12)).astype(np.float32) * 3
+    pts = (centers[rng.integers(0, 16, 4000)]
+           + rng.standard_normal((4000, 12)).astype(np.float32) * 0.3).astype(np.float32)
+    unit = pts / np.linalg.norm(pts, axis=1, keepdims=True)
+    rows = np.random.default_rng(5).choice(4000, 8, replace=False)
+    X = torch.as_tensor(unit, device=cuda)
+    C1, a1 = _kmeans_run(X, rows, 8, 10)
+    C2, a2 = _kmeans_run(X, rows, 8, 10)
+    assert torch.equal(C1, C2) and torch.equal(a1, a2)
+    card = _IVFIndex(pts, 8, 10, 5, cuda).to_arrays("")
+    cpu = _IVFIndex(pts, 8, 10, 5, torch.device("cpu")).to_arrays("")
+    for key in cpu:
+        if key == "centroids":
+            np.testing.assert_allclose(card[key], cpu[key], rtol=0, atol=1e-5)
+        else:
+            assert np.array_equal(card[key], cpu[key]), key
+
+
+def test_ivf_model_on_cuda_probe_all_is_exact(cuda):
+    from chip_smoke import topk_disagreement
+
+    from implicit_tpu_torch.approximate_als import TPUIVFAlternatingLeastSquares
+
+    plays = _item_item_plays()
+    model = TPUIVFAlternatingLeastSquares(factors=32, iterations=3, random_state=2,
+                                          n_probe=10_000, device=cuda)
+    model.fit(plays, show_progress=False)
+    assert model.recommend_index.points.device.type == cuda.type
+    users = np.arange(0, 3000, 37)
+    err, bad = topk_disagreement(model.recommend(users, plays[users], N=10),
+                                 model.model.recommend(users, plays[users], N=10), 1e-5,
+                                 row_scale=True)
+    assert err <= 1e-5 and not bad

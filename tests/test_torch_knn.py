@@ -24,6 +24,8 @@ import torch
 from chip_smoke import knn_disagreement
 from scipy import sparse
 from scipy.sparse import csr_matrix
+# autouse: the JAX package's native library, built and loaded under a lock
+from test_torch_jax_native import jax_native_loaded  # noqa: F401
 
 import implicit_tpu.nearest_neighbours as jnn
 from implicit_tpu import native as jnative

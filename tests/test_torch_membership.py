@@ -13,6 +13,8 @@ import pytest
 import torch
 from scipy.sparse import coo_matrix, csr_matrix
 from scipy.sparse import random as sprandom
+# autouse: the JAX package's native library, built and loaded under a lock
+from test_torch_jax_native import jax_native_loaded  # noqa: F401
 
 from implicit_tpu import native as jax_native
 from implicit_tpu.ops import membership as jax_membership

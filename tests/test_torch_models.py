@@ -3,9 +3,8 @@ weights carried across from the JAX package.
 
 The behavioural contract of ``tests/test_models_common.py`` runs here with
 the port's factories (ALS, BPR and LMF at ``conftest.py``'s settings,
-``device="cpu"``), through this module's own ``model_factory`` fixture; the
-three ``*_pipelined`` tests are left out (pipelined serving is not ported
-yet).
+``device="cpu"``), through this module's own ``model_factory`` fixture,
+the three ``*_pipelined`` tests included.
 """
 
 import ast
@@ -35,14 +34,17 @@ from test_models_common import (  # noqa: F401  (collected here with the port's 
     test_recalculate_user,
     test_recommend,
     test_recommend_batch,
+    test_recommend_pipelined,
     test_serialization,
     test_serialization_without_fit,
     test_similar_items,
     test_similar_items_batch,
     test_similar_items_filter,
+    test_similar_items_pipelined,
     test_similar_users,
     test_similar_users_batch,
     test_similar_users_filter,
+    test_similar_users_pipelined,
     test_zero_length_row,
 )
 
@@ -394,7 +396,10 @@ def test_port_imports_without_jax():
         "import sys, implicit_tpu_torch, implicit_tpu_torch.convert, "
         "implicit_tpu_torch.evaluation, implicit_tpu_torch.ops.cg_kernels, "
         "implicit_tpu_torch.bpr, implicit_tpu_torch.lmf, implicit_tpu_torch.ops.membership, "
-        "implicit_tpu_torch.nearest_neighbours, implicit_tpu_torch.ease, chip_smoke\n"
+        "implicit_tpu_torch.nearest_neighbours, implicit_tpu_torch.ease, "
+        "implicit_tpu_torch.ops.topk, implicit_tpu_torch.approximate_als, "
+        "implicit_tpu_torch.ann.ivf, implicit_tpu_torch.ann.annoy, "
+        "implicit_tpu_torch.ann.nmslib, implicit_tpu_torch.ann.faiss, chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'implicit_tpu')]\n"
         "assert not bad, bad\n"
     )
