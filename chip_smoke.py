@@ -52,9 +52,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    (``_cg_class(use_pallas=True)``) at f=128 with the float32, bfloat16 and
    int8 tables against the plain CG; then batched ``recommend`` and
    ``similar_items``;
-4. quality: p@10 > 0.2 on the committed stdlib corpus (the port's copy,
-   ``implicit_tpu_torch/datasets/_data``), unquantized and with
-   ``gather_quant=True``;
+4. quality: p@10 > 0.2 on the committed stdlib corpus, read through the
+   port's loader (``datasets.stdlib_corpus.get_stdlib_corpus``),
+   unquantized and with ``gather_quant=True``;
 5. the SGD families (torch ops, no kernel of their own) on phase 3's data:
    BPR f=128 grouped and sampled (s/epoch, samples/s, correct and skipped
    per epoch, set-up by step; a second grouped fit of the same seed must
@@ -93,7 +93,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    launches, the k-means build wall, a second build with the same bits,
    every cluster probed giving the exact model's answer for 64 users,
    recall@10 at probe 100 over 1024 users, ms per 1024 users approximate and
-   exact; recall@10 > 0.85 on 200,000 x 128 clustered points.
+   exact; recall@10 > 0.85 on 200,000 x 128 clustered points;
+8. the reference's idioms on the card (the ``cpu`` / ``gpu`` / ``tpu`` alias
+   modules and the dataset loaders, no kernel of their own):
+   ``gpu.HAS_CUDA`` is True, ``tpu.HAS_TPU`` False, ``tpu.device_count()``
+   torch's count, and every alias the port's own object; the factory with
+   ``use_gpu=gpu.HAS_CUDA`` at phase 3's f=128 float32 arguments on its
+   data gives a ``gpu.als.AlternatingLeastSquares`` whose launches are the
+   chunks routed (``cg_full`` and ``gramian_cg``) and whose factors are
+   phase 3's, bit for bit (s/iter, set-up); ``cpu.topk.topk`` on a numpy
+   copy of its item factors (160k x 128) gives ``ops.topk.topk``'s bits on
+   the card's table for 1024 filtered users (both walls);
+   ``get_stdlib_corpus()`` equals the committed npz; in an empty
+   ``IMPLICIT_DATASETS_PATH`` the probes find nothing and nothing is
+   fetched; where h5py and pandas import, phase 6's ML-20M-shaped matrix
+   goes through a MovieLens-20M dump, ``movielens.generate_dataset`` and
+   ``get_movielens`` and must come back as its transpose (walls), and
+   where they do not, one line says so.
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's name and power limit; the last line is
@@ -710,15 +726,18 @@ def port_debug_log():
         log.setLevel(level)
 
 
-def fit_path(tag, plays, device, factors, dtype, gather_quant, iterations=3, ingest="auto"):
+def fit_path(tag, plays, device, factors, dtype, gather_quant, iterations=3, ingest="auto",
+             phase=3, **factory_kwargs):
     """One fit at the full shape, its launches read against the chunks
-    routed, and its set-up (fit wall minus the iterations) split by step."""
+    routed, and its set-up (fit wall minus the iterations) split by step.
+    ``factory_kwargs`` go to the factory as they are (phase 8's
+    ``use_gpu``)."""
     from implicit_tpu_torch.als import AlternatingLeastSquares
     from implicit_tpu_torch.ops import cg_kernels
 
     model = AlternatingLeastSquares(factors=factors, iterations=iterations, random_state=0,
                                     dtype=dtype, gather_quant=gather_quant, ingest=ingest,
-                                    device=device)
+                                    device=device, **factory_kwargs)
     sides = model._gather_quant_sides(*plays.shape)
     want = expected_launches(plays, factors, model._compute_dtype, iterations, sides,
                              cg_steps=model.cg_steps)
@@ -734,13 +753,14 @@ def fit_path(tag, plays, device, factors, dtype, gather_quant, iterations=3, ing
         if not np.isfinite(np.asarray(f, dtype=np.float32)).all():
             raise AssertionError(f"fit {tag}: non-finite factors")
     setup = wall - sum(times)
-    say(3, f"fit {tag}: gather_quant={gather_quant!r} -> (user, item) sides {sides}; "
-           f"s/iter {[round(t, 4) for t in times]} (fit wall {wall:.3f} s, set-up {setup:.3f} s)")
-    say(3, f"fit {tag}: set-up {setup:.4f} s = fit wall {wall:.4f} - iterations "
-           f"{sum(times):.4f}; split (ingest={ingest}, s): "
-           + ", ".join(f"{step} {secs:.4f}" for step, secs in split.steps)
-           + f"; steps sum {sum(secs for _, secs in split.steps):.4f}")
-    say(3, f"fit {tag}: launches {nonzero(launches)}, chunks routed {nonzero(want)}")
+    say(phase, f"fit {tag}: gather_quant={gather_quant!r} -> (user, item) sides {sides}; "
+               f"s/iter {[round(t, 4) for t in times]} (fit wall {wall:.3f} s, "
+               f"set-up {setup:.3f} s)")
+    say(phase, f"fit {tag}: set-up {setup:.4f} s = fit wall {wall:.4f} - iterations "
+               f"{sum(times):.4f}; split (ingest={ingest}, s): "
+               + ", ".join(f"{step} {secs:.4f}" for step, secs in split.steps)
+               + f"; steps sum {sum(secs for _, secs in split.steps):.4f}")
+    say(phase, f"fit {tag}: launches {nonzero(launches)}, chunks routed {nonzero(want)}")
     if launches != want:
         raise AssertionError(f"fit {tag}: launches {launches} != chunks routed {want}")
     return model, sides, times, launches
@@ -968,13 +988,11 @@ def phase_main_path(device, plays):
 
 
 def phase_quality(device, **kwargs):
-    from scipy.sparse import csr_matrix
-
     from implicit_tpu_torch.als import AlternatingLeastSquares
+    from implicit_tpu_torch.datasets.stdlib_corpus import get_stdlib_corpus
     from implicit_tpu_torch.evaluation import precision_at_k, train_test_split
 
-    with np.load(CORPUS, allow_pickle=False) as f:
-        counts = csr_matrix((f["data"], f["indices"], f["indptr"]), shape=tuple(f["shape"]))
+    _, _, counts = get_stdlib_corpus()
     train, test = train_test_split(counts, train_percentage=0.8, random_state=42)
     model = AlternatingLeastSquares(factors=64, regularization=0.05, random_state=3,
                                     device=device, **kwargs)
@@ -1979,6 +1997,220 @@ def phase_serving(device, plays, factors):
     say(7, f"phase 7 wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the reference's idioms on the card (the cpu / gpu / tpu alias
+# modules and the dataset loaders; no kernel of their own: the alias fit
+# launches phase 3's kernels)
+# ---------------------------------------------------------------------------
+
+# (alias module, name, module of the port's own object it must be)
+ALIASES = [
+    ("cpu.als", "AlternatingLeastSquares", "models.als"),
+    ("cpu.als", "calculate_loss", "models.als"),
+    ("cpu.als", "item_factor", "models.als"),
+    ("cpu.als", "least_squares", "models.als"),
+    ("cpu.als", "least_squares_cg", "models.als"),
+    ("cpu.als", "user_factor", "models.als"),
+    ("cpu.als", "user_linear_equation", "models.als"),
+    ("cpu._als", "calculate_loss", "models.als"),
+    ("cpu._als", "least_squares", "models.als"),
+    ("cpu._als", "least_squares_cg", "models.als"),
+    ("cpu.bpr", "BayesianPersonalizedRanking", "models.bpr"),
+    ("cpu.lmf", "LogisticMatrixFactorization", "models.lmf"),
+    ("cpu.matrix_factorization_base", "MatrixFactorizationBase", "models.mf_base"),
+    ("gpu.als", "AlternatingLeastSquares", "models.als"),
+    ("gpu.bpr", "BayesianPersonalizedRanking", "models.bpr"),
+    ("gpu.matrix_factorization_base", "MatrixFactorizationBase", "models.mf_base"),
+]
+
+
+def alias_surface():
+    """Step 1: the flags (``gpu.HAS_CUDA`` True on the card, ``tpu.HAS_TPU``
+    False, ``tpu.device_count()`` torch's count) and every alias the port's
+    own object."""
+    import importlib
+
+    import torch
+
+    from implicit_tpu_torch import gpu, tpu
+
+    if gpu.HAS_CUDA is not True or tpu.HAS_TPU is not False:
+        raise AssertionError(f"gpu.HAS_CUDA {gpu.HAS_CUDA!r}, tpu.HAS_TPU {tpu.HAS_TPU!r}")
+    if tpu.device_count() != torch.cuda.device_count():
+        raise AssertionError(f"tpu.device_count() {tpu.device_count()} != "
+                             f"torch.cuda.device_count() {torch.cuda.device_count()}")
+    for alias, name, home in ALIASES:
+        got = getattr(importlib.import_module("implicit_tpu_torch." + alias), name)
+        if got is not getattr(importlib.import_module("implicit_tpu_torch." + home), name):
+            raise AssertionError(f"implicit_tpu_torch.{alias}.{name} is not the port's "
+                                 f"implicit_tpu_torch.{home}.{name}")
+    say(8, f"gpu.HAS_CUDA {gpu.HAS_CUDA}, gpu.HAS_TPU {gpu.HAS_TPU}, tpu.HAS_TPU "
+           f"{tpu.HAS_TPU}, tpu.device_count() {tpu.device_count()}; {len(ALIASES)} aliases "
+           "are the port's own objects")
+
+
+def alias_fit(device, plays, factors):
+    """Step 2: the reference's factory idiom, ``AlternatingLeastSquares(...,
+    use_gpu=implicit.gpu.HAS_CUDA)``, at phase 3's f=128 float32 arguments
+    on its data: a ``gpu.als.AlternatingLeastSquares`` whose launches are
+    the chunks routed (``cg_full`` and ``gramian_cg`` among them) and whose
+    factors are phase 3's (``factors``) bit for bit."""
+    from implicit_tpu_torch import gpu
+
+    model, _, _, launches = fit_path("f=128 float32 use_gpu=gpu.HAS_CUDA", plays, device, 128,
+                                     np.float32, False, phase=8, use_gpu=gpu.HAS_CUDA)
+    if type(model) is not gpu.als.AlternatingLeastSquares:
+        raise AssertionError(f"the factory gave a {type(model)}, not gpu.als's class")
+    idle = [k for k in ("cg_full_f32", "gramian_cg_f32") if not launches.get(k)]
+    if idle:
+        raise AssertionError(f"alias fit: {idle} never launched")
+    for side, got, want in zip(("user", "item"), (model.user_factors, model.item_factors),
+                               factors):
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            rows = np.flatnonzero((got != want).any(axis=1)) if got.shape == want.shape else []
+            raise AssertionError(f"alias fit: {side} factors differ from phase 3's "
+                                 f"({len(rows)} rows, first {list(rows[:8])})")
+    say(8, "alias fit: user and item factors equal phase 3's f=128 float32 fit's, bit for bit")
+    return model
+
+
+def cpu_topk_check(device, plays, model):
+    """Step 3: ``cpu.topk.topk`` on a numpy copy of the item factors (the
+    reference's calling convention; the table uploads in the call) against
+    ``ops.topk.topk`` on the card's table, 1024 users with their liked items
+    as ``filter_query_items`` and 100 ``filter_items``: the same bits;
+    walls in turns."""
+    import torch
+
+    from implicit_tpu_torch.cpu.topk import topk as cpu_topk
+    from implicit_tpu_torch.ops.topk import topk
+
+    users = np.arange(0, plays.shape[0], plays.shape[0] // 1024)[:1024]
+    liked = plays[users]
+    query = np.ascontiguousarray(model.user_factors[users])
+    items = np.array(model.item_factors, dtype=np.float32)
+    table = torch.as_tensor(items, device=device)
+    kwargs = dict(filter_query_items=liked,
+                  filter_items=np.random.default_rng(8).choice(plays.shape[1], 100,
+                                                               replace=False))
+    walls = {"numpy table": [], "resident table": []}
+    for _ in range(3):
+        got, secs = synced(lambda: cpu_topk(items, query, 10, device=device, **kwargs))
+        walls["numpy table"].append(secs)
+        want, secs = synced(lambda: topk(table, query, 10, **kwargs))
+        walls["resident table"].append(secs)
+        diff = bit_differences([got], [want])
+        if diff:
+            raise AssertionError(f"cpu.topk.topk differs from ops.topk.topk: {diff}")
+    say(8, f"cpu.topk.topk on a numpy {items.shape} float32 table ({items.nbytes / 1e6:.1f} "
+           "MB) gives ops.topk.topk's ids and scores on the card's table, bit for bit; "
+           "1024 users N=10 filtered, ms in turns: " + "; ".join(
+               f"{k} {[round(t * 1e3, 3) for t in v]}" for k, v in walls.items()))
+
+
+def movielens_round_trip(plays):
+    """``plays`` (users x movies) written as a MovieLens-20M dump
+    (``ratings.csv``, ``movies.csv``) in a temporary directory, converted by
+    ``movielens.generate_dataset`` and read back by ``get_movielens("20m")``
+    from the cache there: the CSR must be ``plays``' transpose (shape,
+    indptr, indices and data exact) and the titles the dump's. Returns the
+    walls (dump, conversion, read) in seconds."""
+    import tempfile
+    from unittest import mock
+
+    import pandas
+
+    from implicit_tpu_torch.datasets import movielens
+
+    coo = plays.tocoo()
+    titles = np.array([f"movie {i}" for i in range(plays.shape[1])], dtype=object)
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.dict(
+            os.environ, {"IMPLICIT_DATASETS_PATH": tmp}):
+        raw = os.path.join(tmp, "ml-20m")
+        os.makedirs(raw)
+        t0 = time.perf_counter()
+        pandas.DataFrame({"userId": coo.row, "movieId": coo.col, "rating": coo.data,
+                          "timestamp": np.zeros(coo.nnz, np.int64)}).to_csv(
+            os.path.join(raw, "ratings.csv"), index=False)
+        pandas.DataFrame({"movieId": np.arange(plays.shape[1]), "title": titles,
+                          "genres": "Drama"}).to_csv(os.path.join(raw, "movies.csv"), index=False)
+        t1 = time.perf_counter()
+        movielens.generate_dataset(raw, "20m", tmp)
+        t2 = time.perf_counter()
+        got_titles, got = movielens.get_movielens("20m")
+        t3 = time.perf_counter()
+    want = plays.T.tocsr()
+    bad = [k for k in ("indptr", "indices", "data")
+           if got.shape != want.shape or not np.array_equal(getattr(got, k), getattr(want, k))]
+    if bad or not np.array_equal(got_titles, titles):
+        raise AssertionError(f"MovieLens round trip: {bad or ['titles']} differ "
+                             f"(shape {got.shape}, want {want.shape})")
+    walls = (t1 - t0, t2 - t1, t3 - t2)
+    say(8, f"MovieLens-20M round trip of a {plays.shape} matrix, nnz {plays.nnz}: "
+           f"dump {walls[0]:.3f} s, generate_dataset {walls[1]:.3f} s, get_movielens "
+           f"{walls[2]:.3f} s; the CSR is the source's transpose, exactly")
+    return walls
+
+
+def loader_checks(ml_shape=(138_000, 27_000, 12_000_000)):
+    """Step 4: ``get_stdlib_corpus()`` against the committed npz; with
+    ``IMPLICIT_DATASETS_PATH`` at an empty directory the probes find nothing
+    and nothing is fetched; where h5py and pandas import, phase 6's ML-20M
+    shape (``ml_shape``, seed 1) through :func:`movielens_round_trip`."""
+    import importlib.util
+    import tempfile
+    from unittest import mock
+
+    from implicit_tpu_torch.datasets import _download, movielens
+    from implicit_tpu_torch.datasets.stdlib_corpus import get_stdlib_corpus
+
+    t0 = time.perf_counter()
+    files, tokens, counts = get_stdlib_corpus()
+    t_read = time.perf_counter() - t0
+    with np.load(CORPUS, allow_pickle=False) as f:
+        same = (np.array_equal(files, f["files"]) and np.array_equal(tokens, f["tokens"])
+                and counts.shape == tuple(f["shape"])
+                and all(np.array_equal(getattr(counts, k), f[k])
+                        for k in ("data", "indices", "indptr")))
+    if not same:
+        raise AssertionError("get_stdlib_corpus() differs from the committed npz")
+    with tempfile.TemporaryDirectory() as cache, mock.patch.dict(
+            os.environ, {"IMPLICIT_DATASETS_PATH": cache}):
+        t0 = time.perf_counter()
+        found = (movielens.probe_movielens("20m"), _download.probe_cached("lastfm_360k.hdf5"))
+        t_probe = time.perf_counter() - t0
+        if found != (None, None) or os.listdir(cache):
+            raise AssertionError(f"probes in an empty cache found {found}, "
+                                 f"cache holds {os.listdir(cache)}")
+    say(8, f"get_stdlib_corpus() {counts.shape} nnz {counts.nnz} in {t_read * 1e3:.3f} ms "
+           "equals the committed npz; in an empty IMPLICIT_DATASETS_PATH "
+           f"probe_movielens('20m') and probe_cached return None in {t_probe * 1e3:.3f} ms "
+           "and nothing is fetched")
+    missing = [m for m in ("h5py", "pandas") if importlib.util.find_spec(m) is None]
+    if missing:
+        say(8, f"{' and '.join(missing)} not importable on this machine: no MovieLens "
+               "conversion here (tests/test_torch_datasets.py converts every loader on the CPU)")
+        return None
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+
+    return movielens_round_trip(generate_synthetic(*ml_shape, seed=1))
+
+
+def phase_idioms(device, plays, factors):
+    """Phase 8: the reference's idioms on the card. ``factors`` are phase 3's
+    f=128 float32 fit's (user, item) factors, ``plays`` its data."""
+    import torch
+
+    t_phase = time.perf_counter()
+    alias_surface()
+    model = alias_fit(device, plays, factors)
+    cpu_topk_check(device, plays, model)
+    del model
+    torch.cuda.empty_cache()
+    loader_checks()
+    say(8, f"phase 8 wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def kernel_rows(kernels, launches):
     """One row per kernel for the ``{"kernels": [...]}`` line: the main paths'
     launches (all variants), the largest error over every case, the float32
@@ -2082,6 +2314,7 @@ def main():
     phase_sgd(device, plays)
     phase_item_item(device, plays)
     phase_serving(device, plays, f32_factors)
+    phase_idioms(device, plays, f32_factors)
 
     print(json.dumps({"kernels": kernel_rows(kernels, launches)}))
     print(gpu_line())

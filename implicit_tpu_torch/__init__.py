@@ -9,8 +9,9 @@ the host with the port's C++, and batched top-k serving: resident,
 pipelined (``*_pipelined`` on CUDA streams) or streamed from the host for
 tables over the residency threshold, and approximate through ``ann`` (the
 on-device IVF index, ``approximate_als``'s factories). The package
-mirrors ``implicit_tpu``'s module layout and public surface; it imports
-``torch`` and never ``jax``.
+mirrors ``implicit_tpu``'s module layout and public surface, the
+reference's ``cpu`` / ``gpu`` alias packages and the dataset loaders
+included; it imports ``torch`` and never ``jax``.
 
 Models take ``device=`` (default ``"cuda"``); asking for CUDA where there is
 none raises instead of falling back to the CPU. Importing the package sets
@@ -19,8 +20,11 @@ no global torch flag: the port's float32 products pin full float32 each
 """
 
 from . import als, ann, approximate_als, bpr, ease, lmf, nearest_neighbours
+# user code reads e.g. ``implicit.gpu.HAS_CUDA`` after a bare ``import
+# implicit``, so the alias packages are bound on import, as in implicit_tpu
+from . import cpu, gpu
 
 __version__ = "0.1.0"
 
-__all__ = ["als", "ann", "approximate_als", "bpr", "ease", "lmf", "nearest_neighbours",
-           "__version__"]
+__all__ = ["als", "ann", "approximate_als", "bpr", "cpu", "ease", "gpu", "lmf",
+           "nearest_neighbours", "__version__"]

@@ -1,8 +1,8 @@
 """Factory for Alternating Least Squares models.
 
 The counterpart of ``implicit_tpu/als.py``: one implementation, so the
-factory forwards (``use_gpu`` is accepted for drop-in compatibility; the
-device is chosen by ``device=``).
+factory forwards. ``use_gpu`` is accepted for drop-in compatibility and
+ignored, as in ``implicit_tpu``: the device is chosen by ``device=``.
 """
 
 import numpy as np
@@ -32,7 +32,9 @@ def AlternatingLeastSquares(
 
     Parameters are those of
     :class:`implicit_tpu_torch.models.als.AlternatingLeastSquares`;
-    ``use_gpu`` is accepted for API parity and ignored.
+    ``use_gpu`` is accepted for API parity and ignored: the device is
+    ``device=`` (default ``"cuda"``), so ``use_gpu=False`` does not move the
+    model to the CPU; pass ``device="cpu"`` for that.
 
     Returns
     -------

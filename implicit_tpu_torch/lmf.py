@@ -1,8 +1,8 @@
 """Factory for Logistic Matrix Factorization models.
 
 The counterpart of ``implicit_tpu/lmf.py``: one implementation, so the
-factory forwards (``use_gpu`` is accepted for drop-in compatibility; the
-device is chosen by ``device=``).
+factory forwards. ``use_gpu`` is accepted for drop-in compatibility and
+ignored, as in ``implicit_tpu``: the device is chosen by ``device=``.
 """
 
 import numpy as np
@@ -28,7 +28,9 @@ def LogisticMatrixFactorization(
 
     Parameters are those of
     :class:`implicit_tpu_torch.models.lmf.LogisticMatrixFactorization`;
-    ``use_gpu`` is accepted for API parity and ignored.
+    ``use_gpu`` is accepted for API parity and ignored: the device is
+    ``device=`` (default ``"cuda"``), so ``use_gpu=False`` does not move the
+    model to the CPU; pass ``device="cpu"`` for that.
 
     Returns
     -------

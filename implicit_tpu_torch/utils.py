@@ -14,6 +14,40 @@ class ParameterWarning(Warning):
     pass
 
 
+_checked_blas_config = False
+
+
+def check_blas_config():
+    """Warn once if a host BLAS threadpool runs more than one thread.
+
+    The port's solves run on the card, but host-side preprocessing still
+    touches BLAS, and a multi-threaded pool under this library's
+    single-threaded call pattern only adds oversubscription. Idempotent;
+    returns quietly where ``threadpoolctl`` is not installed.
+    """
+    global _checked_blas_config
+    if _checked_blas_config:
+        return
+    _checked_blas_config = True
+
+    try:
+        import threadpoolctl
+    except ImportError:
+        return
+
+    for api in threadpoolctl.threadpool_info():
+        if api.get("user_api") != "blas" or api.get("num_threads") == 1:
+            continue
+        warnings.warn(
+            f"BLAS library {api.get('internal_api')} is configured to use "
+            f"{api.get('num_threads')} threads. Host-side preprocessing in this "
+            "library is single-threaded per call; consider setting "
+            "OPENBLAS_NUM_THREADS=1 / MKL_NUM_THREADS=1 to avoid oversubscription.",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+
+
 def nonzeros(m, row):
     """Iterates over the (index, value) nonzeros of one row of a CSR matrix."""
     for index in range(m.indptr[row], m.indptr[row + 1]):

@@ -51,6 +51,7 @@ from test_models_common import (  # noqa: F401  (collected here with the port's 
 from implicit_tpu_torch import convert
 from implicit_tpu_torch.als import AlternatingLeastSquares
 from implicit_tpu_torch.bpr import BayesianPersonalizedRanking
+from implicit_tpu_torch.datasets.stdlib_corpus import get_stdlib_corpus
 from implicit_tpu_torch.datasets.synthetic import generate_synthetic
 from implicit_tpu_torch.evaluation import precision_at_k, train_test_split
 from implicit_tpu_torch.lmf import LogisticMatrixFactorization
@@ -114,10 +115,9 @@ def test_checkerboard_precision_at_1():
 
 
 def test_stdlib_corpus_precision_gate():
-    # the JAX package's real-data gate (bench.py:bench_quality_real)
-    with np.load(os.path.join(ROOT, "implicit_tpu", "datasets", "_data",
-                              "stdlib_corpus.npz"), allow_pickle=False) as f:
-        counts = csr_matrix((f["data"], f["indices"], f["indptr"]), shape=tuple(f["shape"]))
+    # the JAX package's real-data gate (bench.py:bench_quality_real), on the
+    # corpus read through the port's own loader
+    _, _, counts = get_stdlib_corpus()
     train, test = train_test_split(counts, train_percentage=0.8, random_state=42)
     model = AlternatingLeastSquares(factors=64, regularization=0.05, random_state=3,
                                     device="cpu")
@@ -399,7 +399,17 @@ def test_port_imports_without_jax():
         "implicit_tpu_torch.nearest_neighbours, implicit_tpu_torch.ease, "
         "implicit_tpu_torch.ops.topk, implicit_tpu_torch.approximate_als, "
         "implicit_tpu_torch.ann.ivf, implicit_tpu_torch.ann.annoy, "
-        "implicit_tpu_torch.ann.nmslib, implicit_tpu_torch.ann.faiss, chip_smoke\n"
+        "implicit_tpu_torch.ann.nmslib, implicit_tpu_torch.ann.faiss, "
+        "implicit_tpu_torch.cpu.als, implicit_tpu_torch.cpu._als, implicit_tpu_torch.cpu.bpr, "
+        "implicit_tpu_torch.cpu.lmf, implicit_tpu_torch.cpu.matrix_factorization_base, "
+        "implicit_tpu_torch.cpu.topk, implicit_tpu_torch.gpu.als, implicit_tpu_torch.gpu.bpr, "
+        "implicit_tpu_torch.gpu.matrix_factorization_base, implicit_tpu_torch.tpu, "
+        "implicit_tpu_torch.datasets._download, implicit_tpu_torch.datasets.lastfm, "
+        "implicit_tpu_torch.datasets.movielens, "
+        "implicit_tpu_torch.datasets.million_song_dataset, "
+        "implicit_tpu_torch.datasets.reddit, implicit_tpu_torch.datasets.sketchfab, "
+        "implicit_tpu_torch.datasets.stdlib_corpus, implicit_tpu_torch.datasets.synthetic, "
+        "chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'implicit_tpu')]\n"
         "assert not bad, bad\n"
     )
