@@ -109,7 +109,25 @@ Phases, each printing its own lines; any failure exits non-zero:
    fetched; where h5py and pandas import, phase 6's ML-20M-shaped matrix
    goes through a MovieLens-20M dump, ``movielens.generate_dataset`` and
    ``get_movielens`` and must come back as its transpose (walls), and
-   where they do not, one line says so.
+   where they do not, one line says so;
+9. the meshed paths (``implicit_tpu_torch.parallel``; the kernels launched
+   per shard) on ``virtual_mesh(4, cuda:0)``, four shards on the one card,
+   at phase 3's shape: ``RowShardedBuckets``' device route against its host
+   route (both sides, every tensor of every shard, an altered entry
+   rejected, both routes' seconds); the sharded loss on phase 3's f=128
+   float32 factors against the single device's; the f=128 float32 meshed
+   fit (3 iterations) against phase 3's (factors, loss, recommend ids of
+   1024 users; the same bar must reject a fit whose last shard skipped its
+   last solve), its launches the routed chunks summed over the shards,
+   s/iter beside phase 3's and its set-up by step; a D=1 mesh against no
+   mesh, bit for bit; f=128 bfloat16 with ``gather_quant=True`` and f=512
+   bfloat16 (1 iteration) against the unmeshed fits at 5% of scale; meshed
+   ``recommend`` (1024 users), ``similar_items`` (1024 items) and
+   ``recommend_pipelined`` (8 x 1024 users) against the resident calls
+   (ids up to ties, scores within 1e-6; the same bar must reject a merge
+   without the shard holding most answers), with walls; and meshed
+   ``topk_streaming`` of phase 7's 10M x 128 table against the resident
+   top-k (phase 7's bar, a dropped last slice rejected), with walls.
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's name and power limit; the last line is
@@ -766,13 +784,14 @@ def fit_path(tag, plays, device, factors, dtype, gather_quant, iterations=3, ing
     return model, sides, times, launches
 
 
-def pack_differences(got, want):
-    """What differs between two (user, item) DeviceBuckets pairs: plans,
-    empty rows, and every class tensor (``torch.equal`` and the dtype)."""
+def pack_differences(got, want, names=("user", "item")):
+    """What differs between two (user, item) DeviceBuckets pairs (or two
+    lists of them, one per ``names``): plans, empty rows, and every class
+    tensor (``torch.equal`` and the dtype)."""
     import torch
 
     out = []
-    for side, g, w in zip(("user", "item"), got, want):
+    for side, g, w in zip(names, got, want):
         if (g.shape, g.nnz, g.sentinel) != (w.shape, w.nnz, w.sentinel):
             out.append(f"{side} shape, nnz or sentinel")
         if (g.empty_rows is None) != (w.empty_rows is None) or (
@@ -937,7 +956,8 @@ def phase_main_path(device, plays):
             totals[k] = totals.get(k, 0) + v
 
     ingest_check(plays, device)
-    f32, _, _, launches = fit_path("f=128 float32", plays, device, 128, np.float32, False)
+    f32, _, f32_times, launches = fit_path("f=128 float32", plays, device, 128, np.float32,
+                                           False)
     add(launches)
     # the same fit packed on the host: the packed tensors, so the factors, the same
     host, _, _, launches = fit_path("f=128 float32 ingest=host", plays, device, 128,
@@ -975,16 +995,18 @@ def phase_main_path(device, plays):
     add(composed_cg_path(plays, device))
     serve_checks("f=128 float32", f32, plays)
     serve_checks("f=128 bfloat16 int8", quant, plays)
-    # phase 7 serves from the f=128 float32 factors (host arrays: no device
-    # memory is held through phases 4-6)
+    # phases 7 and 9 serve from the f=128 float32 factors, and phase 9 holds
+    # its meshed fits to them and to the int8 fit's (host arrays: no device
+    # memory is held through phases 4-8)
     factors = (f32.user_factors, f32.item_factors)
+    reference = dict(f32_times=f32_times, int8=(quant.user_factors, quant.item_factors))
     del f32, quant
     torch.cuda.empty_cache()
     say(3, f"launches over the main paths {totals}")
     missing = [k for k, v in totals.items() if not v]
     if missing:
         raise AssertionError(f"kernels never launched on the main paths: {missing}")
-    return totals, factors
+    return totals, factors, reference
 
 
 def phase_quality(device, **kwargs):
@@ -1799,6 +1821,38 @@ class PassCounter:
         mf_base.topk_streaming, topk._host_block = self._saved
 
 
+def stream_case(device, phase):
+    """The streamed catalog and its queries: a 10M x 128 float32 table drawn
+    on the card (``torch.Generator`` seed 7) and copied to the host once;
+    1024 queries, each liking its own 25 best items and 25 at random;
+    ``filter_items`` holds the 26th best of the first 50 queries (their best
+    once the liked are out) and 50 at random. Returns (card table, host
+    table, queries, liked ids, filter_items, the filter kwargs, the rng)."""
+    import torch
+    from scipy.sparse import csr_matrix
+
+    from implicit_tpu_torch.models import mf_base
+    from implicit_tpu_torch.ops import topk
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    table_dev = torch.randn((STREAM_ITEMS, STREAM_F), generator=gen, device=device)
+    queries = torch.randn((1024, STREAM_F), generator=gen, device=device).cpu().numpy()
+    (table, secs) = synced(lambda: table_dev.cpu().numpy())
+    say(phase, f"stream table {table.shape} float32, {table.nbytes / 1e9:.2f} GB, drawn on "
+               f"the card, copied to the host in {secs:.2f} s; residency threshold "
+               f"{mf_base._stream_threshold_bytes(device) / 2**30:.2f} GiB")
+    rng = np.random.default_rng(7)
+    best = topk.topk(table_dev, queries, 26)[0]
+    liked_cols = np.concatenate([best[:, :25], rng.integers(0, STREAM_ITEMS, (1024, 25))],
+                                axis=1)
+    liked = csr_matrix((np.ones(liked_cols.size, np.float32),
+                        (np.repeat(np.arange(1024), 50), liked_cols.ravel())),
+                       shape=(1024, STREAM_ITEMS))
+    fi = np.concatenate([best[:50, 25], rng.integers(0, STREAM_ITEMS, 50)])
+    return (table_dev, table, queries, liked_cols, fi,
+            dict(filter_query_items=liked, filter_items=fi), rng)
+
+
 def streaming_serving(device):
     """Step 2: a 10M x 128 float32 table (5.12 GB, over the 4 GiB residency
     threshold) drawn on the card and copied to the host once; 1024 queries,
@@ -1815,26 +1869,8 @@ def streaming_serving(device):
     from implicit_tpu_torch.models import mf_base
     from implicit_tpu_torch.ops import topk
 
-    gen = torch.Generator(device=device).manual_seed(7)
-    table_dev = torch.randn((STREAM_ITEMS, STREAM_F), generator=gen, device=device)
-    queries = torch.randn((1024, STREAM_F), generator=gen, device=device).cpu().numpy()
-    (table, secs) = synced(lambda: table_dev.cpu().numpy())
+    table_dev, table, queries, liked_cols, fi, kw, rng = stream_case(device, 7)
     nbytes = table.nbytes
-    say(7, f"stream table {table.shape} float32, {nbytes / 1e9:.2f} GB, drawn on the card, "
-           f"copied to the host in {secs:.2f} s; residency threshold "
-           f"{mf_base._stream_threshold_bytes(device) / 2**30:.2f} GiB")
-    # each query likes its own 25 best items and 25 at random; filter_items
-    # holds the 26th best of the first 50 queries (their best once the liked
-    # are out) and 50 at random
-    rng = np.random.default_rng(7)
-    best = topk.topk(table_dev, queries, 26)[0]
-    liked_cols = np.concatenate([best[:, :25], rng.integers(0, STREAM_ITEMS, (1024, 25))],
-                                axis=1)
-    liked = csr_matrix((np.ones(liked_cols.size, np.float32),
-                        (np.repeat(np.arange(1024), 50), liked_cols.ravel())),
-                       shape=(1024, STREAM_ITEMS))
-    fi = np.concatenate([best[:50, 25], rng.integers(0, STREAM_ITEMS, 50)])
-    kw = dict(filter_query_items=liked, filter_items=fi)
 
     topk.topk(table_dev, queries[:8], 10, **kw)  # warm
     resident, res_s = synced(lambda: topk.topk(table_dev, queries, 10, **kw))
@@ -1858,7 +1894,7 @@ def streaming_serving(device):
            f"({STREAM_ITEMS - last} rows): {len(d_bad)} rows differ, scores {d_err:.3e}: "
            f"rejected; wall resident {res_s:.4f} s (table on the card), streamed "
            f"{str_s:.4f} s, {nbytes / str_s / 1e9:.2f} GB/s of table")
-    del table_dev, best
+    del table_dev
     torch.cuda.empty_cache()
 
     model = AlternatingLeastSquares(factors=STREAM_F, device=device)
@@ -2211,6 +2247,463 @@ def phase_idioms(device, plays, factors):
     say(8, f"phase 8 wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the meshed paths (parallel/) on a virtual mesh of MESH_D shards on
+# the one card: every shard launches the kernels as one device routes them
+# ---------------------------------------------------------------------------
+
+MESH_D = 4
+# meshed fit (f=128 float32, 3 iterations) against phase 3's unmeshed fit:
+# the largest factor difference over the table's largest |factor|. The
+# gramian is a sum of MESH_D per-shard gramians and the chunks hold other
+# rows, so the fits differ by float32 rounding, which 3-step CG grows on a
+# few ill-conditioned rows: the first run on the card read 1.474e-02
+# (NVIDIA H100 80GB HBM3, 700.00 W), with the losses 4.6e-08 apart; the bar
+# is set from it (1e-3 did not hold)
+MESH_FACTOR_BAR = 5e-2
+# and the larger over both tables of |got - want|_F / |want|_F, which a few
+# rows cannot dominate: the first run on the card read 4.838e-04, and a fit
+# whose last shard skipped its last solve 4.877e-02
+MESH_FROB_BAR = 5e-3
+# training loss of both fits, relative
+MESH_LOSS_RTOL = 1e-3
+# recommend ids for 1024 users: share of positions that agree. The first
+# run on the card read 0.9963 (adjacent near-tie swaps; the same card),
+# under tests/test_parallel.py:115-137's 0.999; the gate is the JAX
+# package's looser one of tests/test_parallel.py:183
+MESH_AGREE = 0.99
+# the sharded loss against the single-device bucketed loss on the same factors
+MESH_SAME_LOSS_RTOL = 1e-5
+# bfloat16 meshed fits against the unmeshed ones: 5% of the factors' scale
+# (phase 2's bfloat16 bar on fits, ROADMAP C5)
+MESH_BF16_BAR = 0.05
+
+
+def mesh_launches(csr, n_shards, factors, compute_dtype, iterations, gather_quant,
+                  grid="pow2", cg_steps=3):
+    """Launches per kernel entry point a meshed fit's routing asks for,
+    counted from the layout's rule alone: rows dealt to shard u % D; each
+    class cut into the pieces of its largest shard's row count; a chunk
+    launches where it holds a row of its shard (all-sentinel chunks are
+    skipped); the kernel by L as ``expected_launches``."""
+    from implicit_tpu_torch.ops import cg_kernels
+    from implicit_tpu_torch.ops.als import _full_cg_max_l
+    from implicit_tpu_torch.sparse import als_chunk_target, chunk_pieces, length_class_grid
+
+    target = als_chunk_target(factors, compute_dtype)
+    max_l = _full_cg_max_l(compute_dtype, factors)
+    out = dict.fromkeys(cg_kernels.LAUNCHES, 0)
+    for m, quant in ((csr, gather_quant[0]), (csr.T.tocsr(), gather_quant[1])):
+        variant = "i8" if quant else ("bf16" if compute_dtype == "bfloat16" else "f32")
+        nnz = np.diff(m.indptr)
+        rows = np.flatnonzero(nnz > 0)
+        L_per_row = length_class_grid(nnz[rows], 8, grid)
+        for L in np.unique(L_per_row):
+            in_class = rows[L_per_row == L]
+            counts = np.bincount(in_class % n_shards, minlength=n_shards)
+            chunks = 0
+            for start, stop, n_chunks, C in chunk_pieces(int(counts.max()), int(L), target,
+                                                         65536):
+                here = np.clip(np.minimum(stop, counts) - start, 0, None)
+                chunks += int((-(-here // C)).sum())
+            if factors > cg_kernels.MAX_FACTORS:
+                out[f"weighted_matvec_{variant}"] += (cg_steps + 1) * chunks * iterations
+                out["cg_update"] += (cg_steps + 1) * chunks * iterations
+                continue
+            kernel = "cg_full" if L <= max_l else "gramian_cg"
+            out[f"{kernel}_{variant}"] += chunks * iterations
+    return out
+
+
+def mesh_fit(tag, plays, device, mesh, factors, dtype, gather_quant, iterations=3):
+    """A meshed fit through the factory at the full shape: launches against
+    the chunks routed per shard, s/iter, and the set-up by step."""
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+    from implicit_tpu_torch.ops import cg_kernels
+
+    model = AlternatingLeastSquares(factors=factors, iterations=iterations, random_state=0,
+                                    dtype=dtype, gather_quant=gather_quant, mesh=mesh,
+                                    device=device)
+    sides = model._gather_quant_sides(*plays.shape)
+    want = mesh_launches(plays, mesh.size, factors, model._compute_dtype, iterations, sides,
+                         cg_steps=model.cg_steps)
+    times = []
+    with port_debug_log() as split:
+        cg_kernels.reset_launches()
+        t0 = time.perf_counter()
+        model.fit(plays, show_progress=False,
+                  callback=lambda it, elapsed, loss: times.append(elapsed))
+        wall = time.perf_counter() - t0
+        launches = dict(cg_kernels.LAUNCHES)
+    for f in (model.user_factors, model.item_factors):
+        if not np.isfinite(np.asarray(f, dtype=np.float32)).all():
+            raise AssertionError(f"meshed fit {tag}: non-finite factors")
+    setup = wall - sum(times)
+    say(9, f"meshed fit {tag}: D={mesh.size}, s/iter {[round(t, 4) for t in times]}; set-up "
+           f"{setup:.4f} s = fit wall {wall:.4f} - iterations {sum(times):.4f}; split (s): "
+           + ", ".join(f"{step} {secs:.4f}" for step, secs in split.steps)
+           + f"; steps sum {sum(secs for _, secs in split.steps):.4f}")
+    say(9, f"meshed fit {tag}: launches {nonzero(launches)}, chunks routed over the shards "
+           f"{nonzero(want)}")
+    if launches != want:
+        raise AssertionError(f"meshed fit {tag}: launches {launches} != chunks routed {want}")
+    return model, times, launches
+
+
+def factor_gap(got, want):
+    """The larger over the user and item tables of max |got - want| over the
+    table's largest |want|."""
+    return max(float(np.abs(np.asarray(g, np.float32) - np.asarray(w, np.float32)).max())
+               / float(np.abs(np.asarray(w, np.float32)).max()) for g, w in zip(got, want))
+
+
+def served_users(plays):
+    users = np.arange(0, plays.shape[0], plays.shape[0] // 1024)[:1024]
+    return users, plays[users]
+
+
+def fit_against(tag, model, want, plays, user_sh, mesh, bar, resident):
+    """The meshed model's factors against the unmeshed ``want``: the factor
+    gap, both training losses (the sharded loss on ``user_sh``) and the
+    recommend ids of 1024 users (``resident`` serves ``want``). Returns the
+    checks out of their bar."""
+    from implicit_tpu_torch.parallel import als_sharded
+
+    got = (model.user_factors, model.item_factors)
+    gap = factor_gap(got, want)
+    frob = max(float(np.linalg.norm(np.asarray(g, np.float32) - w) / np.linalg.norm(w))
+               for g, w in zip(got, want))
+    wide = sum(int((np.abs(np.asarray(g, np.float32) - w).max(1)
+                    > 1e-3 * np.abs(w).max()).sum()) for g, w in zip(got, want))
+    losses = []
+    for uf, itf in (got, want):
+        X, Y = (als_sharded.shard_rows(np.asarray(t, np.float32), mesh,
+                                       als_sharded._block(t.shape[0], mesh.size))
+                for t in (uf, itf))
+        losses.append(als_sharded.calculate_loss(user_sh, X, Y, 0.01, mesh))
+    loss_gap = abs(losses[0] - losses[1]) / abs(losses[1])
+    users, liked = served_users(plays)
+    ids = model.recommend(users, liked, N=10)[0]
+    agree = float((ids == resident.recommend(users, liked, N=10)[0]).mean())
+    failed = [name for name, ok in (("factors", gap <= bar and frob <= MESH_FROB_BAR),
+                                    ("loss", loss_gap <= MESH_LOSS_RTOL),
+                                    ("recommend", agree > MESH_AGREE)) if not ok]
+    say(9, f"{tag}: factors {gap:.3e} of scale (bar {bar}), Frobenius {frob:.3e} (bar "
+           f"{MESH_FROB_BAR}), {wide} rows over 1e-3 of scale; loss {losses[0]:.6f} vs "
+           f"{losses[1]:.6f} ({loss_gap:.3e}, bar {MESH_LOSS_RTOL}), recommend ids agree in "
+           f"{agree:.4f} of positions (gate > {MESH_AGREE}); failed: {failed or 'none'}")
+    return failed
+
+
+def mesh_pack_check(plays, device, mesh):
+    """Step 1: ``RowShardedBuckets`` through the device route against the
+    host route, both sides, as the f=128 float32 meshed fit packs (pow2): every
+    tensor of every shard ``torch.equal`` with the same dtype, an altered
+    entry of the last shard rejected; both routes' seconds. Returns the
+    user side's device pack (the loss checks read it)."""
+    import torch
+
+    from implicit_tpu_torch.parallel import RowShardedBuckets
+    from implicit_tpu_torch.sparse import als_chunk_target
+
+    Cui = plays.astype(np.float32)
+    (Ciu, t_s) = synced(lambda: Cui.T.tocsr())
+    kw = dict(target_entries=als_chunk_target(128, "float32"), max_chunk_rows=65536,
+              grid="pow2")
+    names = [f"shard {k}" for k in range(mesh.size)]
+    keep = None
+    for side, csr in (("user", Cui), ("item", Ciu)):
+        dev, dev_s = synced(lambda: RowShardedBuckets(csr, mesh, pack="device", **kw))
+        host, host_s = synced(lambda: RowShardedBuckets(csr, mesh, pack="host", **kw))
+        differ = pack_differences(dev.shards, host.shards, names)
+        if differ:
+            raise AssertionError(f"sharded pack {side}: device route differs from the host "
+                                 f"route: {differ[:8]}")
+        cls = dev.shards[-1].classes[-1]
+        saved = cls.data.clone()
+        cls.data[0, 0, 0] += 1.0
+        altered = pack_differences(dev.shards, host.shards, names)
+        cls.data = saved
+        if altered != [f"shard {mesh.size - 1} L={cls.L} C={cls.C} data"]:
+            raise AssertionError(f"sharded pack {side}: one altered entry gave {altered}")
+        chunks = sum(c.n_chunks for sh in dev.shards for c in sh.classes)
+        say(9, f"sharded pack {side} side (D={mesh.size}, pow2): device route == host route, "
+               f"every tensor of {len(dev.shards[0].classes)} classes x {mesh.size} shards "
+               f"({chunks} chunks); an altered entry is rejected ({altered[0]}); device "
+               f"{dev_s:.4f} s, host {host_s:.4f} s" + (f"; transpose {t_s:.4f} s"
+                                                         if side == "item" else ""))
+        if side == "user":
+            keep = dev
+        del dev, host
+        torch.cuda.empty_cache()
+    return keep
+
+
+class SkipLastShardSolve:
+    """Inside the block, the last call of ``ops.als._solve_side_core`` (the
+    last shard's item half of the last iteration) returns its X unsolved."""
+
+    def __init__(self, total_calls):
+        self.total, self.calls = total_calls, 0
+
+    def __enter__(self):
+        from implicit_tpu_torch.ops import als as als_ops
+
+        self.saved = core = als_ops._solve_side_core
+
+        def skipping(X, *args, **kw):
+            self.calls += 1
+            return X if self.calls == self.total else core(X, *args, **kw)
+
+        als_ops._solve_side_core = skipping
+        return self
+
+    def __exit__(self, *exc):
+        from implicit_tpu_torch.ops import als as als_ops
+
+        als_ops._solve_side_core = self.saved
+
+
+def mesh_fits(device, plays, f32_factors, phase3, mesh, add):
+    """Steps 1-4: the sharded pack; the sharded loss on phase 3's factors
+    against the single device's; the meshed fits against the unmeshed ones
+    (f=128 float32 D=MESH_D, a fit whose last shard skipped its last solve
+    rejected; D=1 bit for bit; f=128 bfloat16 int8; f=512 bfloat16)."""
+    import torch
+
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+    from implicit_tpu_torch.ops import als as als_ops
+    from implicit_tpu_torch.parallel import als_sharded, virtual_mesh
+    from implicit_tpu_torch.sparse import BucketedCSR
+
+    user_sh = mesh_pack_check(plays, device, mesh)
+    resident = AlternatingLeastSquares(factors=128, device=device)
+    resident.user_factors, resident.item_factors = f32_factors
+
+    X, Y = (torch.as_tensor(f, device=device) for f in f32_factors)
+    single_loss = als_ops.calculate_loss_bucketed(
+        BucketedCSR(plays.astype(np.float32), grid="pow2").to_device(device), X, Y, 0.01)
+    mesh_loss = als_sharded.calculate_loss(
+        user_sh, als_sharded.shard_rows(X, mesh, user_sh.block),
+        als_sharded.shard_rows(Y, mesh, als_sharded._block(Y.shape[0], mesh.size)), 0.01, mesh)
+    gap = abs(mesh_loss - single_loss) / abs(single_loss)
+    say(9, f"sharded loss on phase 3's f=128 float32 factors {mesh_loss:.8f}, the single "
+           f"device's {single_loss:.8f}: {gap:.3e} apart (bar {MESH_SAME_LOSS_RTOL})")
+    if gap > MESH_SAME_LOSS_RTOL:
+        raise AssertionError(f"sharded loss {mesh_loss} vs the single device's {single_loss}")
+    del X, Y
+
+    model, times, launches = mesh_fit("f=128 float32", plays, device, mesh, 128, np.float32,
+                                      False)
+    add(launches)
+    say(9, f"s/iter meshed (D={mesh.size} on one card) {[round(t, 4) for t in times]}, "
+           f"phase 3's unmeshed {[round(t, 4) for t in phase3['f32_times']]}")
+    failed = fit_against("f=128 float32 meshed vs phase 3's fit", model, f32_factors, plays,
+                         user_sh, mesh, MESH_FACTOR_BAR, resident)
+    if failed:
+        raise AssertionError(f"meshed fit f=128 float32 vs unmeshed: {failed} out of bar")
+    del model
+    with SkipLastShardSolve(2 * mesh.size * 3) as skip:
+        wrong = AlternatingLeastSquares(factors=128, iterations=3, random_state=0, mesh=mesh,
+                                        device=device)
+        wrong.fit(plays, show_progress=False)
+    if skip.calls != 2 * mesh.size * 3:
+        raise AssertionError(f"the meshed fit made {skip.calls} shard solves, not "
+                             f"{2 * mesh.size * 3}")
+    failed = fit_against("f=128 float32 meshed, the last shard's last solve skipped", wrong,
+                         f32_factors, plays, user_sh, mesh, MESH_FACTOR_BAR, resident)
+    if not failed:
+        raise AssertionError("the meshed-fit bar passed a fit whose last shard skipped its "
+                             "last solve")
+    del wrong, user_sh
+    torch.cuda.empty_cache()
+
+    one, _, launches = mesh_fit("f=128 float32 D=1", plays, device, virtual_mesh(1, device),
+                                128, np.float32, False)
+    add(launches)
+    same = [np.array_equal(a, b) for a, b in zip((one.user_factors, one.item_factors),
+                                                  f32_factors)]
+    say(9, f"D=1 mesh against no mesh, f=128 float32: user / item factors equal bit for bit: "
+           f"{same} (the same layout, chunks, column ids and one gramian without a sum)")
+    if not all(same):
+        raise AssertionError("a D=1 meshed fit differs from the unmeshed fit")
+    del one
+
+    quant, _, launches = mesh_fit("f=128 bfloat16 int8", plays, device, mesh, 128, np.float16,
+                                  True)
+    add(launches)
+    gap = factor_gap((quant.user_factors, quant.item_factors), phase3["int8"])
+    say(9, f"f=128 bfloat16 int8 meshed vs phase 3's unmeshed: {gap:.3e} of scale "
+           f"(bar {MESH_BF16_BAR})")
+    if gap > MESH_BF16_BAR:
+        raise AssertionError(f"meshed bfloat16 int8 fit {gap} of scale from the unmeshed")
+    del quant
+    torch.cuda.empty_cache()
+    wide, _, _, launches = fit_path("f=512 bfloat16 1 iteration (unmeshed reference)", plays,
+                                    device, 512, np.float16, False, iterations=1, phase=9)
+    add(launches)
+    wide_m, _, launches = mesh_fit("f=512 bfloat16", plays, device, mesh, 512, np.float16,
+                                   False, iterations=1)
+    add(launches)
+    gap = factor_gap((wide_m.user_factors, wide_m.item_factors),
+                     (wide.user_factors, wide.item_factors))
+    say(9, f"f=512 bfloat16 meshed vs unmeshed, 1 iteration: {gap:.3e} of scale "
+           f"(bar {MESH_BF16_BAR})")
+    if gap > MESH_BF16_BAR:
+        raise AssertionError(f"meshed f=512 bfloat16 fit {gap} of scale from the unmeshed")
+    del wide, wide_m
+    torch.cuda.empty_cache()
+
+
+def merge_without(table, skip, queries, liked, k=10):
+    """The item-sharded top-k of ``queries`` (liked items filtered) with
+    shard ``skip``'s candidates left out of the merge: each other shard's
+    own top-k (``ops.topk.topk`` on the shard alone, its liked columns
+    sliced), merged on the host."""
+    from implicit_tpu_torch.ops import topk
+
+    n_local = table.shards[0].shape[0]
+    ids, scores = [], []
+    for s, shard in enumerate(table.shards):
+        if s == skip:
+            continue
+        i, v = topk.topk(shard, queries, k, filter_query_items=liked[:, s * n_local:
+                                                                     (s + 1) * n_local])
+        ids.append(np.where(i >= 0, i + s * n_local, -1))
+        scores.append(v)
+    ids, scores = np.concatenate(ids, axis=1), np.concatenate(scores, axis=1)
+    order = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(ids, order, 1), np.take_along_axis(scores, order, 1)
+
+
+def mesh_serving(device, plays, f32_factors, mesh):
+    """Step 5: phase 3's f=128 float32 factors served through the mesh
+    against the resident single-device calls: ``recommend`` for 1024 users
+    (N=10, liked filtered), ``similar_items`` for 1024 items and
+    ``recommend_pipelined`` over 8 x 1024 users; ids equal up to ties at
+    the 10th score, scores within TOPK_RTOL relative; the same bar rejects
+    the merge without the candidates of the shard that holds most of the
+    resident answers (with power-law popularity, the first: the last shard
+    holds the tail, and a merge without it is printed too); walls."""
+    import torch
+
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+
+    model = AlternatingLeastSquares(factors=128, mesh=mesh, device=device)
+    resident = AlternatingLeastSquares(factors=128, device=device)
+    for m in (model, resident):
+        m.user_factors, m.item_factors = f32_factors
+    users, liked = served_users(plays)
+    items = np.arange(1024)
+    calls = {
+        "recommend 1024 users N=10 liked filtered": lambda m: m.recommend(users, liked, N=10),
+        "similar_items 1024 items N=10": lambda m: m.similar_items(items, N=10),
+    }
+    wants = {}
+    for name, call in calls.items():
+        call(model), call(resident)  # warm: the shards, tables and norms are cached
+        walls = {"mesh": [], "resident": []}
+        for which in ("mesh", "resident", "resident", "mesh"):
+            out, secs = synced(lambda: call(model if which == "mesh" else resident))
+            walls[which].append(secs * 1e3)
+            (wants if which == "resident" else {}).setdefault(name, out)
+            got = out if which == "mesh" else None
+            if got is not None and name in wants:
+                err, bad = topk_disagreement(got, wants[name], TOPK_RTOL)
+                if err > TOPK_RTOL or bad:
+                    raise AssertionError(f"meshed {name}: scores {err:.3e}, {len(bad)} rows")
+        say(9, f"meshed {name}: the resident call's ids but at ties, scores within "
+               f"{err:.3e} (bar {TOPK_RTOL}); ms mesh {[round(t, 2) for t in walls['mesh']]}, "
+               f"resident {[round(t, 2) for t in walls['resident']]}")
+
+    step = plays.shape[0] // 8192
+    batches = [np.arange(i, i + 1024 * step, step) for i in range(0, 8192 * step, 1024 * step)]
+    got, mesh_s = synced(lambda: list(model.recommend_pipelined(
+        ((b, plays[b]) for b in batches), N=10)))
+    want, res_s = synced(lambda: [resident.recommend(b, plays[b], N=10) for b in batches])
+    for b, (g, w) in enumerate(zip(got, want)):
+        err, bad = topk_disagreement(g, w, TOPK_RTOL)
+        if err > TOPK_RTOL or bad:
+            raise AssertionError(f"meshed recommend_pipelined batch {b}: {err:.3e}, "
+                                 f"{len(bad)} rows")
+    say(9, f"meshed recommend_pipelined 8 x 1024 users (N=10, liked filtered): the resident "
+           f"per-batch calls' ids but at ties; wall mesh pipelined {mesh_s:.4f} s, resident "
+           f"loop {res_s:.4f} s")
+
+    table = model._factors_on_mesh("item", mesh)
+    want = wants["recommend 1024 users N=10 liked filtered"]
+    n_local = table.shards[0].shape[0]
+    held = np.bincount(want[0].ravel() // n_local, minlength=mesh.size)
+    for skip in dict.fromkeys((mesh.size - 1, int(held.argmax()))):
+        d_err, d_bad = topk_disagreement(
+            merge_without(table, skip, f32_factors[0][users], liked), want, TOPK_RTOL)
+        say(9, f"the merge without shard {skip}'s candidates (items {skip * n_local}-"
+               f"{(skip + 1) * n_local - 1}, which hold {held[skip]} of the resident answers): "
+               f"{len(d_bad)} rows differ, scores {d_err:.3e}")
+    if not (d_err > TOPK_RTOL or d_bad):
+        raise AssertionError(f"the meshed serving bar passed a merge without shard {skip}")
+    del model, resident, table
+    torch.cuda.empty_cache()
+
+
+def mesh_streaming(device, mesh):
+    """Step 6: ``topk_streaming(..., mesh=)`` on phase 7's 10M x 128 table:
+    each block cut over the shards; against the resident top-k on the
+    card's copy at phase 7's bar, the same bar rejecting the result with
+    the last shard slice dropped; walls."""
+    import torch
+
+    from implicit_tpu_torch.ops import topk
+
+    table_dev, table, queries, liked_cols, fi, kw, _ = stream_case(device, 9)
+    topk.topk(table_dev, queries[:8], 10, **kw)  # warm
+    resident, res_s = synced(lambda: topk.topk(table_dev, queries, 10, **kw))
+    del table_dev
+    torch.cuda.empty_cache()
+    with PassCounter() as count:
+        streamed, str_s = synced(lambda: topk.topk_streaming(table, queries, 10, mesh=mesh,
+                                                             **kw))
+    err, bad = topk_disagreement(streamed, resident, TOPK_RTOL)
+    if err > TOPK_RTOL or bad:
+        raise AssertionError(f"meshed topk_streaming vs resident: {err:.3e}, {len(bad)} rows")
+    for r in range(1024):
+        if np.isin(streamed[0][r], liked_cols[r]).any() or np.isin(streamed[0][r], fi).any():
+            raise AssertionError(f"meshed topk_streaming returned a filtered item in row {r}")
+    last = max(start for start, _ in count.blocks)
+    dropped = topk.topk_streaming(table[:last], queries, 10, mesh=mesh, **kw)
+    d_err, d_bad = topk_disagreement(dropped, resident, TOPK_RTOL)
+    if not (d_err > TOPK_RTOL or d_bad):
+        raise AssertionError("the meshed streaming bar passed a result missing its last slice")
+    say(9, f"meshed topk_streaming 1024 queries N=10 (D={mesh.size}, {len(count.blocks)} "
+           f"shard slices of up to {max(b - a for a, b in count.blocks)} rows): the resident "
+           f"ids but at ties, scores within {err:.3e} (bar {TOPK_RTOL}); the last slice "
+           f"dropped ({STREAM_ITEMS - last} rows): {len(d_bad)} rows differ, scores "
+           f"{d_err:.3e}: rejected; wall resident {res_s:.4f} s, streamed {str_s:.4f} s, "
+           f"{table.nbytes / str_s / 1e9:.2f} GB/s of table")
+
+
+def phase_mesh(device, plays, f32_factors, phase3):
+    """Phase 9: the meshed paths on ``virtual_mesh(MESH_D, device)``, MESH_D
+    shards on the one card. ``f32_factors`` and ``phase3`` are phase 3's.
+    Returns the kernel launches of its fits."""
+    from implicit_tpu_torch.parallel import virtual_mesh
+
+    t_phase = time.perf_counter()
+    mesh = virtual_mesh(MESH_D, device)
+    totals = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    mesh_fits(device, plays, f32_factors, phase3, mesh, add)
+    mesh_serving(device, plays, f32_factors, mesh)
+    mesh_streaming(device, mesh)
+    say(9, f"launches over the meshed fits {nonzero(totals)}")
+    say(9, f"phase 9 wall {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def kernel_rows(kernels, launches):
     """One row per kernel for the ``{"kernels": [...]}`` line: the main paths'
     launches (all variants), the largest error over every case, the float32
@@ -2308,13 +2801,15 @@ def main():
 
     kernels = phase_kernels(device)
     plays = lastfm_plays()
-    launches, f32_factors = phase_main_path(device, plays)
+    launches, f32_factors, phase3 = phase_main_path(device, plays)
     phase_quality(device)
     phase_quality(device, gather_quant=True, dtype=np.float16)
     phase_sgd(device, plays)
     phase_item_item(device, plays)
     phase_serving(device, plays, f32_factors)
     phase_idioms(device, plays, f32_factors)
+    for k, v in phase_mesh(device, plays, f32_factors, phase3).items():
+        launches[k] = launches.get(k, 0) + v
 
     print(json.dumps({"kernels": kernel_rows(kernels, launches)}))
     print(gpu_line())

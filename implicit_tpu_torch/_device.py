@@ -69,6 +69,12 @@ def full_f32_matmul():
         torch.set_float32_matmul_precision(saved)
 
 
+def on_device(device):
+    """Work queued inside the block goes to ``device``'s current stream: a
+    ``torch.cuda.device`` switch for a CUDA device, nothing for the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
 @contextlib.contextmanager
 def timed_step(step, device, stage="fit set-up"):
     """Logs the block's seconds at debug level as ``"<stage> %s in %.4f
@@ -76,17 +82,24 @@ def timed_step(step, device, stage="fit set-up"):
     for the factor models' set-up, ``"item-item fit ..."`` for the steps of
     an item-item similarity build.
 
-    With debug logging on, a CUDA ``device`` is synchronized before the
-    clock starts and before it stops, so each step counts the device work it
-    queued and none of the steps before; that gives up the overlap of host
-    and device work across steps. With it off, the block runs untimed.
+    With debug logging on, a CUDA ``device`` (or each of a list of devices,
+    a mesh's) is synchronized before the clock starts and before it stops,
+    so each step counts the device work it queued and none of the steps
+    before; that gives up the overlap of host and device work across steps.
+    With it off, the block runs untimed.
     """
     if not log.isEnabledFor(logging.DEBUG):
         yield
         return
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda device: None)
-    sync(device)
+    devices = [d for d in (device if isinstance(device, (list, tuple)) else [device])
+               if d.type == "cuda"]
+
+    def sync():
+        for d in dict.fromkeys(devices):
+            torch.cuda.synchronize(d)
+
+    sync()
     start = time.perf_counter()
     yield
-    sync(device)
+    sync()
     log.debug(stage + " %s in %.4f s", step, time.perf_counter() - start)

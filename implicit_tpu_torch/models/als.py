@@ -1,10 +1,12 @@
-"""Implicit-feedback Alternating Least Squares on one device.
+"""Implicit-feedback Alternating Least Squares on one device or a mesh.
 
 The counterpart of ``implicit_tpu/models/als.py``: the Hu/Koren/Volinsky
 implicit ALS objective with the Takács et al. conjugate-gradient speedup.
 Each half-iteration re-solves whole chunks of rows of a
 :class:`~implicit_tpu_torch.sparse.BucketedCSR` in the CUDA solve kernels
-(see :mod:`implicit_tpu_torch.ops.als`).
+(see :mod:`implicit_tpu_torch.ops.als`); with ``mesh=`` every shard of the
+row-sharded layout does so for its own rows
+(:mod:`implicit_tpu_torch.parallel.als_sharded`).
 """
 
 import logging
@@ -19,6 +21,8 @@ from tqdm.auto import tqdm
 
 from .._device import timed_step
 from ..ops import als as als_ops
+from ..parallel import als_sharded
+from ..parallel.mesh import Mesh
 from ..sparse import BucketedCSR, als_chunk_target, pack_pair_on_device
 from ..utils import check_csr, check_random_state
 from .mf_base import MatrixFactorizationBase
@@ -77,8 +81,16 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
     random_state : int, RandomState, Generator or None, optional
         Seeding for the initial factor matrices (numpy, so the same seed
         gives the JAX package's initial factors)
-    mesh : None
-        Multi-device training is not ported yet; anything but None raises.
+    mesh : parallel.Mesh or int, optional
+        Train and serve over a mesh of devices, from this one process: both
+        factor tables are sharded on their rows (row u on shard u % D), every
+        shard solves its own rows in the CUDA kernels, and serving shards the
+        item table (``parallel.als_sharded``, ``ops.topk``). An int n is
+        ``parallel.create_mesh(n, device)``: n cards on CUDA (raising where
+        fewer are visible; it never moves to the CPU), n virtual shards on
+        the CPU; ``parallel.virtual_mesh(n, "cuda:0")`` runs n shards on one
+        card. A meshed fit solves float32 for a float64 model, as the JAX
+        package's does. None (default) trains on ``device``.
     grid : {"auto", "pow2", "fine"}, optional
         Row-length bucketing grid; "auto" means "pow2".
     ingest : {"auto", "host", "device"}, optional
@@ -132,8 +144,10 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
         self.fit_callback = None
         self.cg_steps = 3
         self.random_state = random_state
-        if mesh is not None:
-            raise NotImplementedError("mesh= (multi-device training) is not ported yet")
+        if not (mesh is None or isinstance(mesh, Mesh)
+                or (isinstance(mesh, (int, np.integer)) and not isinstance(mesh, bool)
+                    and mesh >= 1)):
+            raise ValueError(f"mesh must be None, a parallel.Mesh or an int >= 1, got {mesh!r}")
         self.mesh = mesh
         if grid not in ("auto", "pow2", "fine"):
             raise ValueError(f"grid must be 'auto', 'pow2' or 'fine', got {grid!r}")
@@ -198,6 +212,10 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
         users, items = Cui.shape
         target = als_chunk_target(self.factors, self._compute_dtype)
         grid = "pow2" if self.grid == "auto" else self.grid
+        if not callback:
+            callback = self.fit_callback
+        if self.mesh is not None:
+            return self._fit_sharded(Cui, random_state, target, grid, show_progress, callback)
         user_buckets, item_buckets = pack_pair_on_device(
             Cui, target_entries=target, max_chunk_rows=65536, grid=grid, data_dtype=solve_np,
             mode=self.ingest, device=self.device)
@@ -210,8 +228,6 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
         self._XtX = None
         loss = None
 
-        if not callback:
-            callback = self.fit_callback
         kw = dict(reg=self.regularization, use_cg=self.use_cg, cg_steps=self.cg_steps,
                   compute_dtype=self._compute_dtype)
         gq_user, gq_item = self._gather_quant_sides(users, items)
@@ -246,20 +262,89 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
 
         self._check_factors(X, Y)
 
-    def _initial_factors(self, factors, n, random_state):
-        """The fit's starting (n, factors) table on the device, in the solve
-        dtype: a copy of ``factors`` where the model has them (the solves
-        update it in place), else the JAX package's start, numpy's float32
-        draw times 0.01 rounded to the storage dtype, with the scaling and
-        both casts on the device (the same bits as numpy's)."""
-        solve = torch.float64 if self._compute_dtype == "float64" else torch.float32
+    def _fit_sharded(self, Cui, random_state, target, grid, show_progress, callback):
+        """The fit over the model's mesh, on the row-sharded layout
+        (``parallel.als_sharded``): the layout of both sides, the starting
+        factors (numpy's draws, as without a mesh) cut into the shards, the
+        iterations, and the shards gathered back in row order. Solves
+        float32 for a float64 model, as the JAX package's meshed fit."""
+        mesh = self._serving_mesh()
+        devices, first = mesh.distinct(), mesh.devices[0]
+        users, items = Cui.shape
+        with timed_step("transpose", devices):
+            Ciu = Cui.T.tocsr()
+        kw = dict(target_entries=target, max_chunk_rows=65536, grid=grid, pack=self.ingest)
+        with timed_step("sharded pack user side", devices):
+            user_sh = als_sharded.RowShardedBuckets(Cui, mesh, **kw)
+        with timed_step("sharded pack item side", devices):
+            item_sh = als_sharded.RowShardedBuckets(Ciu, mesh, **kw)
+        # user table first: the JAX package's stream
+        X = self._initial_factors(self.user_factors, users, random_state, first, torch.float32)
+        Y = self._initial_factors(self.item_factors, items, random_state, first, torch.float32)
+        with timed_step("permute and upload", devices):
+            Xs = als_sharded.shard_rows(X, mesh, user_sh.block)
+            Ys = als_sharded.shard_rows(Y, mesh, item_sh.block)
+        del X, Y
+
+        self._item_norms = self._user_norms = None
+        self._YtY = None
+        self._XtX = None
+        loss = None
+        compute_dtype = "float32" if self._compute_dtype == "float64" else self._compute_dtype
+        kw = dict(use_cg=self.use_cg, cg_steps=self.cg_steps, compute_dtype=compute_dtype,
+                  gather_quant=self._gather_quant_sides(users, items))
+
+        log.debug("Running %i ALS iterations over %r", self.iterations, mesh)
+        with tqdm(total=self.iterations, disable=not show_progress) as progress:
+            for iteration in range(self.iterations):
+                s = time.time()
+                Xs, Ys = als_sharded.fit(Xs, Ys, user_sh, item_sh, mesh, self.regularization, 1,
+                                         **kw)
+                if callback or self.calculate_training_loss:
+                    for d in devices:
+                        if d.type == "cuda":
+                            torch.cuda.synchronize(d)
+                progress.update(1)
+
+                if self.calculate_training_loss:
+                    loss = als_sharded.calculate_loss(user_sh, Xs, Ys, self.regularization,
+                                                      mesh)
+                    progress.set_postfix({"loss": loss})
+                    if not show_progress:
+                        log.info("loss %.4f", loss)
+
+                if callback:
+                    callback(iteration, time.time() - s, loss)
+
+        with timed_step("copy back", devices):
+            X = als_sharded.gather_rows(Xs, users, first)
+            Y = als_sharded.gather_rows(Ys, items, first)
+            storage = _as_torch_dtype(self.dtype)
+            user_factors, item_factors = (T.to(storage).cpu().numpy() for T in (X, Y))
+        self.user_factors, self.item_factors = user_factors, item_factors
+
+        if self.calculate_training_loss:
+            log.info("Final training loss %.4f", loss)
+
+        self._check_factors(X, Y)
+
+    def _initial_factors(self, factors, n, random_state, device=None, solve=None):
+        """The fit's starting (n, factors) table on ``device`` (default the
+        model's), in the solve dtype (default the model's): a copy of
+        ``factors`` where the model has them (the solves update it in
+        place), else the JAX package's start, numpy's float32 draw times
+        0.01 rounded to the storage dtype, with the scaling and both casts
+        on the device (the same bits as numpy's)."""
+        device = self.device if device is None else device
+        if solve is None:
+            solve = torch.float64 if self._compute_dtype == "float64" else torch.float32
         if factors is not None:
-            with timed_step("factor copy", self.device):
-                return torch.tensor(np.asarray(factors), device=self.device).to(solve)
-        with timed_step("factor draw", self.device):
+            with timed_step("factor copy", device):
+                return torch.tensor(np.asarray(factors), device=device).to(solve)
+        with timed_step("factor draw", device):
             draw = random_state.random((n, self.factors), dtype=np.float32)
-        with timed_step("factor init", self.device):
-            return (torch.as_tensor(draw, device=self.device) * 0.01).to(
+        with timed_step("factor init", device):
+            return (torch.as_tensor(draw, device=device) * 0.01).to(
                 _as_torch_dtype(self.dtype)).to(solve)
 
     def _solve_rows(self, row_items, other_factors, gram):
@@ -313,6 +398,7 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
         self._user_norms = None
         self._XtX = None
         self._user_factors_dev = None  # in-place update: refresh the device copy
+        self._drop_mesh_cache("user")  # and the mesh's shards
 
     def partial_fit_items(self, itemids, item_users):
         """Incrementally recalculates factors for the given items, growing storage."""
@@ -332,6 +418,7 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
         self._item_norms = None
         self._YtY = None
         self._item_factors_dev = None  # in-place update: refresh the device copy
+        self._drop_mesh_cache("item")  # and the mesh's shards
 
     def explain(self, userid, user_items, itemid, user_weights=None, N=10):
         """Explains why ``itemid`` is recommended to ``userid``.

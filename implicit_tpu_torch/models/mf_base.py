@@ -17,6 +17,13 @@ A factor table larger than the residency threshold
 ``ops.topk.topk_streaming``; its pipelined generators serve every
 ``_STREAM_PASS_ROWS`` buffered query rows in one pass over the table.
 
+A model with a ``mesh`` (an int, or a ``parallel.Mesh``) serves through it:
+the table is sharded on its rows over the mesh once and cached
+(:meth:`MatrixFactorizationBase._factors_on_mesh`), each shard scores and
+selects on its device, and the candidates merge on the mesh's first device
+(``ops.topk`` with ``mesh=``); the threshold then applies to one shard's
+rows, and a table over it streams with each block cut over the mesh.
+
 Factor matrices live on the host as numpy arrays (the public contract);
 assigning ``user_factors`` / ``item_factors`` drops the device copy.
 """
@@ -28,7 +35,10 @@ import torch
 from scipy.sparse import csr_matrix
 
 from .._device import resolve_device
-from ..ops.topk import _score_budget_elements, _upload, topk_async, topk_streaming
+from ..ops.topk import (
+    _score_budget_elements, _upload, shard_items_for_topk, topk_async, topk_streaming,
+)
+from ..parallel.mesh import Mesh, create_mesh, virtual_mesh
 from ..recommender_base import RecommenderBase
 
 # bound on the buffered query rows of one table pass of the streaming
@@ -39,11 +49,25 @@ _STREAM_PASS_ROWS = 65536
 
 class _StreamTable:
     """A factor table served through ``ops.topk.topk_streaming``: the host
-    array stays on the host and its row blocks upload per call. Chosen when
-    the table is over the residency threshold."""
+    array stays on the host and its row blocks upload per call, each cut
+    over ``mesh`` where there is one. Chosen when the table is over the
+    residency threshold."""
 
-    def __init__(self, array):
+    def __init__(self, array, mesh=None):
         self.array = array
+        self.mesh = mesh
+
+
+class _MeshTable:
+    """A factor table sharded on its rows over a mesh
+    (``ops.topk.shard_items_for_topk``): its shards, their norms (or None)
+    and the true row count."""
+
+    def __init__(self, shards, norms, n_items, mesh):
+        self.shards = shards
+        self.norms = norms
+        self.n_items = n_items
+        self.mesh = mesh
 
 
 class _ReadyFuture:
@@ -157,6 +181,7 @@ class MatrixFactorizationBase(RecommenderBase):
         self._user_norms, self._item_norms = None, None
         self._item_factors_dev = None
         self._user_factors_dev = None
+        self._mesh_serving_cache = {}
         self.num_threads = num_threads
 
     # -- factor storage + device cache --------------------------------------
@@ -169,6 +194,7 @@ class MatrixFactorizationBase(RecommenderBase):
     def user_factors(self, value):
         self._user_factors = value
         self._user_factors_dev = None
+        self._drop_mesh_cache("user")
 
     @property
     def item_factors(self):
@@ -178,6 +204,7 @@ class MatrixFactorizationBase(RecommenderBase):
     def item_factors(self, value):
         self._item_factors = value
         self._item_factors_dev = None
+        self._drop_mesh_cache("item")
 
     def _serving_dtype(self):
         """bfloat16 for models with 16-bit factor storage, else float32.
@@ -193,13 +220,14 @@ class MatrixFactorizationBase(RecommenderBase):
         return torch.as_tensor(np.asarray(factors)).to(
             device=self.device, dtype=self._serving_dtype())
 
-    def _table_streams(self, factors):
+    def _table_streams(self, factors, n_shards=1):
         """True when ``factors`` is over the residency threshold, in the
-        serving dtype's bytes."""
+        serving dtype's bytes. A table sharded over ``n_shards`` needs 1/n
+        of its bytes on each device, so a mesh pools the budget."""
         if factors is None:
             return False
         itemsize = 2 if self._serving_dtype() == torch.bfloat16 else 4
-        nbytes = factors.shape[0] * factors.shape[1] * itemsize
+        nbytes = factors.shape[0] * factors.shape[1] * itemsize // max(n_shards, 1)
         return nbytes > _stream_threshold_bytes(self.device)
 
     def _user_factors_on_device(self):
@@ -214,19 +242,76 @@ class MatrixFactorizationBase(RecommenderBase):
 
     def _serving_table(self, which):
         """The full user or item table as the top-k reads it: the cached
-        device copy, or a :class:`_StreamTable` over the host array."""
+        device copy, the cached :class:`_MeshTable` of a meshed model, or a
+        :class:`_StreamTable` over the host array."""
         host = self.user_factors if which == "user" else self.item_factors
+        mesh = self._serving_mesh()
+        if mesh is not None:
+            if self._table_streams(host, n_shards=mesh.size):
+                return _StreamTable(host, mesh)
+            return self._factors_on_mesh(which, mesh)
         if self._table_streams(host):
             return _StreamTable(host)
         return (self._user_factors_on_device() if which == "user"
                 else self._item_factors_on_device())
 
     def __getstate__(self):
-        # device tensors stay out of pickles; the caches refill on use
+        # device tensors stay out of pickles; the caches refill on use. A
+        # Mesh is stored as its size, and rebuilt on the model's device when
+        # it is next used (:meth:`_serving_mesh`): a mesh over several cards
+        # then raises where fewer are visible, a virtual mesh stays virtual
         state = self.__dict__.copy()
         state["_item_factors_dev"] = None
         state["_user_factors_dev"] = None
+        state["_mesh_serving_cache"] = {}
+        mesh = state.get("mesh")
+        if isinstance(mesh, Mesh):
+            state["mesh"] = mesh.size
+            state["_mesh_virtual"] = mesh.virtual
         return state
+
+    # -- serving over a mesh -----------------------------------------------------
+
+    def _serving_mesh(self):
+        """The model's ``Mesh``, or None: a Mesh as it is; an int n as
+        ``parallel.create_mesh(n, device)`` on the model's device (n cards on
+        CUDA, raising where fewer are visible; n virtual shards on the CPU),
+        or as a virtual mesh where the model was pickled with one. Cached."""
+        mesh = getattr(self, "mesh", None)
+        if mesh is None or isinstance(mesh, Mesh):
+            return mesh
+        virtual = getattr(self, "_mesh_virtual", False)
+        cache = self._mesh_cache_dict()
+        key = ("mesh", int(mesh), virtual)
+        if key not in cache:
+            cache[key] = (virtual_mesh if virtual else create_mesh)(int(mesh), self.device)
+        return cache[key]
+
+    def _mesh_cache_dict(self):
+        # a model loaded through __new__ has no cache yet
+        cache = getattr(self, "_mesh_serving_cache", None)
+        if cache is None:
+            cache = self._mesh_serving_cache = {}
+        return cache
+
+    def _drop_mesh_cache(self, which):
+        cache = getattr(self, "_mesh_serving_cache", None)
+        if cache:
+            for key in [k for k in cache if k[0] == which]:
+                del cache[key]
+
+    def _factors_on_mesh(self, which, mesh):
+        """The user or item table sharded over ``mesh`` in the serving dtype,
+        with its norms (similar_* divides by them, recommend does not read
+        them), as a cached :class:`_MeshTable`."""
+        cache = self._mesh_cache_dict()
+        key = (which, mesh)
+        if key not in cache:
+            host = self.user_factors if which == "user" else self.item_factors
+            norms = self.user_norms if which == "user" else self.item_norms
+            cache[key] = _MeshTable(*shard_items_for_topk(host, norms, mesh,
+                                                          dtype=self._serving_dtype()), mesh)
+        return cache[key]
 
     # -- norms ---------------------------------------------------------------
 
@@ -270,10 +355,10 @@ class MatrixFactorizationBase(RecommenderBase):
     def _rows(self, which, ids):
         """Rows ``ids`` of the user or item table: gathered on the device
         from the cached copy, or on the host when the table streams (it
-        must never upload whole)."""
+        must never upload whole) or is sharded over a mesh."""
         table = self._serving_table(which)
-        if isinstance(table, _StreamTable):
-            table = table.array
+        if isinstance(table, (_StreamTable, _MeshTable)):
+            table = self.user_factors if which == "user" else self.item_factors
         return table[ids : ids + 1] if np.isscalar(ids) else table[np.asarray(ids)]
 
     def _user_factor(self, userid, user_items, recalculate_user=False):
@@ -292,9 +377,10 @@ class MatrixFactorizationBase(RecommenderBase):
         """Validates ``items=`` and resolves the scoring table.
 
         Returns ``(N, items, table)``: the subset's rows on the device in
-        the serving dtype, or the full table (:meth:`_serving_table`); a
-        table over the threshold is a :class:`_StreamTable`. The pipelined
-        generators call it once for the whole stream.
+        the serving dtype (sharded over the mesh of a meshed model), or the
+        full table (:meth:`_serving_table`); a table over the threshold is
+        a :class:`_StreamTable`. The pipelined generators call it once for
+        the whole stream.
         """
         if items is None:
             return N, None, self._serving_table("item")
@@ -304,6 +390,12 @@ class MatrixFactorizationBase(RecommenderBase):
         items = _validate_subset(items, self.item_factors.shape[0], "itemids")
         items.sort()
         subset = self.item_factors[items]
+        mesh = self._serving_mesh()
+        if mesh is not None:
+            if self._table_streams(subset, n_shards=mesh.size):
+                return N, items, _StreamTable(subset, mesh)
+            return N, items, _MeshTable(*shard_items_for_topk(
+                subset, None, mesh, dtype=self._serving_dtype()), mesh)
         if self._table_streams(subset):
             return N, items, _StreamTable(subset)
         # subset tables score in the serving dtype, like the full table
@@ -335,7 +427,11 @@ class MatrixFactorizationBase(RecommenderBase):
         if isinstance(table, _StreamTable):
             future = _ReadyFuture(*topk_streaming(
                 table.array, user, N, filter_query_items=filter_query_items,
-                filter_items=filter_items, device=self.device))
+                filter_items=filter_items, device=self.device, mesh=table.mesh))
+        elif isinstance(table, _MeshTable):
+            future = topk_async(table.shards, user, N, filter_query_items=filter_query_items,
+                                filter_items=filter_items, mesh=table.mesh,
+                                n_items=table.n_items)
         else:
             future = topk_async(table, user, N, filter_query_items=filter_query_items,
                                 filter_items=filter_items)
@@ -444,7 +540,8 @@ class MatrixFactorizationBase(RecommenderBase):
                                  shape=(offsets[-1], n_cols))
             all_ids, all_scores = topk_streaming(table.array, queries, N,
                                                  filter_query_items=fqi,
-                                                 filter_items=filter_items, device=self.device)
+                                                 filter_items=filter_items, device=self.device,
+                                                 mesh=table.mesh)
             offset = 0
             for _, _, _, n_rows, scalar in group:
                 yield _post_recommend(all_ids[offset : offset + n_rows],
@@ -525,13 +622,19 @@ class MatrixFactorizationBase(RecommenderBase):
     def _prep_similar_table(self, which, subset):
         """The candidate table of similar_* and its norms, ``(table,
         norms)``: the subset's rows on the device (norms beside them), the
-        full device table with its norms uploaded, or a
-        :class:`_StreamTable` with the host norms. Made once per pipelined
-        stream."""
+        full device table with its norms uploaded, a :class:`_MeshTable`
+        (its norm shards inside), or a :class:`_StreamTable` with the host
+        norms. Made once per pipelined stream."""
         host = self.user_factors if which == "user" else self.item_factors
         norms = self.user_norms if which == "user" else self.item_norms
+        mesh = self._serving_mesh()
         if subset is not None:
             host, norms = host[subset], norms[subset]
+            if mesh is not None:
+                if self._table_streams(host, n_shards=mesh.size):
+                    return _StreamTable(host, mesh), norms
+                return _MeshTable(*shard_items_for_topk(host, norms, mesh,
+                                                        dtype=self._serving_dtype()), mesh), None
             if self._table_streams(host):
                 return _StreamTable(host), norms
             # in the serving dtype: the norms were taken of the rounded table
@@ -539,6 +642,8 @@ class MatrixFactorizationBase(RecommenderBase):
         table = self._serving_table(which)
         if isinstance(table, _StreamTable):
             return table, norms
+        if isinstance(table, _MeshTable):
+            return table, None
         return table, _upload(norms, self.device)
 
     def _similar_async(self, query_factor, query_norm, N, filter_ids, subset, prep):
@@ -553,7 +658,11 @@ class MatrixFactorizationBase(RecommenderBase):
         if isinstance(table, _StreamTable):
             future = _ReadyFuture(*topk_streaming(table.array, query_factor, N,
                                                   item_norms=norms, filter_items=filter_ids,
-                                                  device=self.device))
+                                                  device=self.device, mesh=table.mesh))
+        elif isinstance(table, _MeshTable):
+            future = topk_async(table.shards, query_factor, N, item_norms=table.norms,
+                                filter_items=filter_ids, mesh=table.mesh,
+                                n_items=table.n_items)
         else:
             future = topk_async(table, query_factor, N, item_norms=norms,
                                 filter_items=filter_ids)
@@ -572,7 +681,8 @@ class MatrixFactorizationBase(RecommenderBase):
         def flush(group):
             queries = torch.cat([g[0] for g in group])
             all_ids, all_scores = topk_streaming(table.array, queries, N, item_norms=norms,
-                                                 filter_items=filter_ids, device=self.device)
+                                                 filter_items=filter_ids, device=self.device,
+                                                 mesh=table.mesh)
             offset = 0
             for _, qn, n_rows, scalar in group:
                 yield _post_similar(all_ids[offset : offset + n_rows],

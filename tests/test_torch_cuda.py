@@ -451,6 +451,64 @@ def test_fit_on_cuda_matches_cpu(cuda):
     assert diff <= 1e-3 * np.linalg.norm(factors["cpu"])
 
 
+def test_virtual_mesh_fit_on_cuda_matches_cpu(cuda):
+    """A meshed fit on a virtual mesh of 4 shards on the card against the
+    same on a virtual CPU mesh, at test_fit_on_cuda_matches_cpu's bar: the
+    same layout and gramian order, the kernels against their plain
+    versions; every shard launches its routed chunks. Served through both
+    meshes, the ids agree up to ties."""
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+    from implicit_tpu_torch.parallel import virtual_mesh
+
+    plays = generate_synthetic(2000, 700, 60000, seed=3)
+    models = {}
+    for dev in ("cpu", cuda):
+        model = AlternatingLeastSquares(factors=32, iterations=1, random_state=0,
+                                        mesh=virtual_mesh(4, dev), device=dev)
+        cg_kernels.reset_launches()
+        model.fit(plays, show_progress=False)
+        models[str(dev)] = model
+    launched = {k: v for k, v in cg_kernels.LAUNCHES.items() if v}
+    assert set(launched) == {"cg_full_f32", "gramian_cg_f32"}, launched
+    got, want = models["cuda"].item_factors, models["cpu"].item_factors
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+    assert np.linalg.norm(got - want) <= 1e-3 * np.linalg.norm(want)
+    users = np.arange(256)
+    ids_c, sc_c = models["cuda"].recommend(users, plays[users], N=10)
+    single = AlternatingLeastSquares(factors=32, device=cuda)
+    single.user_factors, single.item_factors = (models["cuda"].user_factors,
+                                                models["cuda"].item_factors)
+    ids_s, sc_s = single.recommend(users, plays[users], N=10)
+    np.testing.assert_allclose(sc_c, sc_s, rtol=1e-6)
+    assert (ids_c == ids_s).mean() > 0.99
+
+
+def test_virtual_mesh_pickles_as_virtual(cuda, monkeypatch):
+    """A model on a virtual mesh of the card restores on a virtual mesh of
+    its device; a model asking for two cards where one is visible raises
+    when it serves, and never serves from the CPU."""
+    import pickle
+
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+    from implicit_tpu_torch.parallel import virtual_mesh
+
+    rng = np.random.default_rng(0)
+    model = AlternatingLeastSquares(factors=16, mesh=virtual_mesh(4, cuda), device=cuda)
+    model.user_factors = rng.standard_normal((50, 16), dtype=np.float32)
+    model.item_factors = rng.standard_normal((300, 16), dtype=np.float32)
+    want = model.recommend(np.arange(50), None, N=5, filter_already_liked_items=False)
+    restored = pickle.loads(pickle.dumps(model))
+    assert restored.mesh == 4 and restored._serving_mesh() == virtual_mesh(4, cuda)
+    got = restored.recommend(np.arange(50), None, N=5, filter_already_liked_items=False)
+    np.testing.assert_array_equal(got[0], want[0])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    restored.mesh = 2
+    restored._mesh_virtual = False
+    with pytest.raises(ValueError, match="CUDA device"):
+        restored.recommend(np.arange(50), None, N=5, filter_already_liked_items=False)
+
+
 def test_wide_fit_on_cuda_matches_cpu(cuda):
     """factors=320, past what cg_full and gramian_cg take: every class of the
     fit solves in the composed CG on weighted_matvec, on the card as on the

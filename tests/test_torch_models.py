@@ -299,13 +299,21 @@ def test_cuda_without_a_card_raises(family, monkeypatch):
 
 @pytest.mark.parametrize("kwargs,error", [
     (dict(device="meta"), ValueError),
-    (dict(mesh=2), NotImplementedError),
+    (dict(mesh=2, device="cuda"), ValueError),
     (dict(grid="coarse"), ValueError),
     (dict(ingest="remote"), ValueError),
 ])
-def test_unsupported_arguments_raise(kwargs, error):
-    with pytest.raises(error):
-        AlternatingLeastSquares(**{"device": "cpu", **kwargs})
+def test_unsupported_arguments_raise(kwargs, error, monkeypatch):
+    # one visible card: a 2-card mesh raises when the fit resolves it, and
+    # nothing is fitted, on the CPU or anywhere else
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    model = None
+    with pytest.raises(error, match="CUDA device" if "mesh" in kwargs else None):
+        model = AlternatingLeastSquares(**{"device": "cpu", **kwargs})
+        model.fit(get_checkerboard(4), show_progress=False)
+    assert model is None or model.user_factors is None
 
 
 @pytest.mark.parametrize("factory,kwargs,error", [
@@ -409,6 +417,8 @@ def test_port_imports_without_jax():
         "implicit_tpu_torch.datasets.million_song_dataset, "
         "implicit_tpu_torch.datasets.reddit, implicit_tpu_torch.datasets.sketchfab, "
         "implicit_tpu_torch.datasets.stdlib_corpus, implicit_tpu_torch.datasets.synthetic, "
+        "implicit_tpu_torch.parallel, implicit_tpu_torch.parallel.mesh, "
+        "implicit_tpu_torch.parallel.als_sharded, implicit_tpu_torch.parallel.topk_sharded, "
         "chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'implicit_tpu')]\n"
         "assert not bad, bad\n"
