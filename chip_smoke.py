@@ -127,7 +127,28 @@ Phases, each printing its own lines; any failure exits non-zero:
    (ids up to ties, scores within 1e-6; the same bar must reject a merge
    without the shard holding most answers), with walls; and meshed
    ``topk_streaming`` of phase 7's 10M x 128 table against the resident
-   top-k (phase 7's bar, a dropped last slice rejected), with walls.
+   top-k (phase 7's bar, a dropped last slice rejected), with walls;
+10. the meshed SGD and item-item fits (torch ops, no kernel of their own) on
+   the same ``virtual_mesh(4, cuda:0)``: one meshed BPR f=128 sampled epoch
+   fed draws made on the host (last.fm shape, batch 65536 = 4 x 16384, 280
+   steps) must give ``_bpr_epoch``'s bits on their concatenation, and the
+   same bar must reject the epoch without the last shard's draws; BPR on
+   ``virtual_mesh(1)`` the unmeshed sampled fit's bits (1 epoch); two
+   meshed BPR fits of one seed the same bits (2 epochs, s/epoch beside
+   phase 5's, set-up by step); LMF f=32 ``neg_prop=30`` meshed for 5
+   epochs, every pool's arrangement (the re-shuffle in epoch 5) equal to a
+   host replay of numpy's stream; meshed ``recommend`` of both against the
+   resident call (phase 9's bar); one meshed LMF class update with draws
+   made on the host, card against CPU at phase 5's bar, which must reject
+   the update missing the last shard's slice; clustered p@10 >= 0.85 for
+   meshed BPR and LMF; BM25 K=20 at phase 6's ML-20M shape through the
+   meshed device route against phase 6's unmeshed similarity (phase 6's
+   route bar; a gramian missing its last shard's row block rejected; a
+   second build the same bits; wall and TFLOP/s beside phase 6's); EASE's
+   meshed weights by phase 6's closed form (lam off by 10% rejected) and
+   ``EASERecommender(K=100, mesh=)`` against phase 6's similarity, with its
+   steps and peak device memory. Each step prints its wall (``grep "phase
+   10"``).
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's name and power limit; the last line is
@@ -1143,11 +1164,11 @@ def lmf_fit(plays, device, iterations, profile_at):
     return model, steady, prof
 
 
-def scale_bar(tag, got, want, wrong, tol):
+def scale_bar(tag, got, want, wrong, tol, what="the dropped chunk"):
     """Each output tensor's max |got - want| against ``tol`` times that
     tensor's scale (max |want|): must hold for ``want`` in every tensor and
-    fail for ``wrong`` in at least one. Returns the largest error and the
-    wrong result's, each over its tensor's scale."""
+    fail for ``wrong`` (``what`` names it) in at least one. Returns the
+    largest error and the wrong result's, each over its tensor's scale."""
     def rel(a, b):
         return float((a.double() - b.double()).abs().max() / b.double().abs().max())
 
@@ -1156,7 +1177,7 @@ def scale_bar(tag, got, want, wrong, tol):
     if not err <= tol:
         raise AssertionError(f"{tag}: card and CPU differ by {err:.3e} of scale > {tol}")
     if wrong_err <= tol:
-        raise AssertionError(f"{tag}: the bar does not reject the dropped chunk "
+        raise AssertionError(f"{tag}: the bar does not reject {what} "
                              f"({wrong_err:.3e} of scale <= {tol})")
     return err, wrong_err
 
@@ -1296,10 +1317,11 @@ def injected_draw_check(device):
                f"{wrong_err:.3e}, rejected")
 
 
-def sgd_quality(device):
+def sgd_quality(device, mesh=None, phase=5):
     """p@10 on ``bench_quality``'s clustered set (``bench.py:404-437``): BPR
-    factors=63 iterations=200 and LMF factors=30, random_state=42; each at
-    least 0.85 (the JAX package recorded 0.8708 and 0.8639)."""
+    factors=63 iterations=200 and LMF factors=30, random_state=42, trained
+    over ``mesh`` where one is given; each at least 0.85 (the JAX package
+    recorded 0.8708 and 0.8639)."""
     from implicit_tpu_torch.bpr import BayesianPersonalizedRanking
     from implicit_tpu_torch.datasets.synthetic import get_synthetic_clustered
     from implicit_tpu_torch.evaluation import precision_at_k, train_test_split
@@ -1310,13 +1332,14 @@ def sgd_quality(device):
     out = {}
     for name, model in (
             ("bpr", BayesianPersonalizedRanking(factors=63, iterations=200, random_state=42,
-                                                device=device)),
-            ("lmf", LogisticMatrixFactorization(factors=30, random_state=42, device=device))):
+                                                mesh=mesh, device=device)),
+            ("lmf", LogisticMatrixFactorization(factors=30, random_state=42, mesh=mesh,
+                                                device=device))):
         t0 = time.perf_counter()
         model.fit(train, show_progress=False)
         out[name] = float(precision_at_k(model, train, test, K=10, show_progress=False))
-        say(5, f"clustered set {likes.shape}: {name} p@10 = {out[name]:.4f} (gate >= 0.85), "
-               f"fit {time.perf_counter() - t0:.2f} s")
+        say(phase, f"clustered set {likes.shape}: {'meshed ' if mesh else ''}{name} p@10 = "
+                   f"{out[name]:.4f} (gate >= 0.85), fit {time.perf_counter() - t0:.2f} s")
     low = {k: v for k, v in out.items() if not v >= 0.85}
     if low:
         raise AssertionError(f"clustered p@10 under 0.85: {low}")
@@ -1370,6 +1393,7 @@ def phase_sgd(device, plays):
 
     injected_draw_check(device)
     sgd_quality(device)
+    return dict(bpr_sampled=s_s, lmf=l_s)
 
 
 # ---------------------------------------------------------------------------
@@ -1509,7 +1533,7 @@ def knn_routes(ml, device):
     auto = nn._device_knn_wins(weighted, device)
     say(6, f"knn auto picks the {'device' if auto else 'host'} route here "
            f"(sum d_u^2 = {pairs:.4g} pair expansions)")
-    return weighted, rates, auto
+    return weighted, rates, auto, dict(sim=dev, wall=dev_s, gramian=steps["gramian"])
 
 
 def lastfm_bm25(plays, device):
@@ -1582,7 +1606,7 @@ def ease_check(ml, device):
     say(6, f"ease closed form on 64 columns: (S + lam I) B[:, J] - S[:, J] off the diagonal "
            f"{errs[250.0]:.3e} of max |lam B[:, J]| (bar {EASE_BAR}); lam off by 10%: "
            f"{errs[275.0]:.3e}, rejected")
-    return model
+    return model, dict(wall=wall, peak=peak)
 
 
 def serve_item_item(tag, model, plays):
@@ -1654,10 +1678,10 @@ def phase_item_item(device, lastfm):
     t_phase = time.perf_counter()
     ml = generate_synthetic(138_000, 27_000, 12_000_000, seed=1)
     say(6, f"ML-20M-shaped data {ml.shape} nnz={ml.nnz} in {time.perf_counter() - t_phase:.1f} s")
-    _, rates, auto = knn_routes(ml, device)
+    weighted, rates, auto, knn = knn_routes(ml, device)
     torch.cuda.empty_cache()
     lastfm_bm25(lastfm, device)
-    ease_model = ease_check(ml, device)
+    ease_model, ease_stats = ease_check(ml, device)
     bm25 = BM25Recommender(K=20, device=device)
     t0 = time.perf_counter()
     bm25.fit(ml, show_progress=False)
@@ -1665,12 +1689,14 @@ def phase_item_item(device, lastfm):
            f"{time.perf_counter() - t0:.3f} s")
     serve_item_item("bm25 K=20", bm25, ml)
     serve_item_item("ease K=100", ease_model, ml)
+    ease_sim = ease_model.similarity
     del bm25, ease_model
     torch.cuda.empty_cache()
     item_item_quality(device)
     say(6, f"cost-rule rates measured here ({gpu_line()}): " + ", ".join(
         f"{k} {v:.4g}" for k, v in rates.items()))
     say(6, f"phase 6 wall {time.perf_counter() - t_phase:.1f} s")
+    return dict(ml=ml, weighted=weighted, knn=knn, ease_sim=ease_sim, ease=ease_stats)
 
 
 # ---------------------------------------------------------------------------
@@ -2704,6 +2730,469 @@ def phase_mesh(device, plays, f32_factors, phase3):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the meshed SGD and item-item fits (models/bpr.py, models/lmf.py,
+# nearest_neighbours.py and ease.py with mesh=) on a virtual mesh of MESH_D
+# shards on the one card; torch ops, no kernel of their own
+# ---------------------------------------------------------------------------
+
+# the meshed EASE similarity against phase 6's unmeshed one: each row's sorted
+# values relative to each other (the column solves against the identity and
+# cholesky_inverse round differently); neighbours equal up to ties at the
+# K-th score within the same share
+MESH_EASE_RTOL = 1e-3
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def mesh_bpr_epoch_check(plays, device, mesh, factors=128, steps=None, seed=11):
+    """Step 1a: one meshed sampled BPR epoch (``_bpr_epoch_sharded``) fed
+    draws made on the host, against ``_bpr_epoch`` fed their concatenation,
+    bit for bit (the same ops on the same values), counts equal; the same
+    bar must reject the epoch with the last shard's draws left out (D - 1
+    shards). ``steps`` cuts the epoch (default: the fit's, nnz over the
+    batch). Returns the meshed and the single-device epoch's seconds."""
+    import torch
+
+    from implicit_tpu_torch.models import bpr as bpr_mod
+    from implicit_tpu_torch.ops import membership
+    from implicit_tpu_torch.parallel import virtual_mesh
+
+    device = torch.device(device)
+    users, items = plays.shape
+    nnz, D = plays.nnz, mesh.size
+    batch = int(min(bpr_mod._MAX_BATCH, max(64, 1 << int(np.ceil(np.log2(max(nnz // 64, 1)))))))
+    steps = steps or max(1, -(-nnz // batch))
+    local = -(-batch // D)
+    rng = np.random.default_rng(seed)
+    start = [rng.standard_normal(shape, dtype=np.float32) * 0.1
+             for shape in ((users, factors), (items, factors), (items,))]
+    draws = torch.as_tensor(rng.integers(0, nnz, size=(steps, D, 2, local))).to(device)
+    userids = np.repeat(np.arange(users, dtype=np.int64), np.diff(plays.indptr))
+    pt = membership.build_pair_table(plays, row_ids=userids)
+    table = None if pt is None else pt.to_device(device)
+    flats = tuple(torch.as_tensor(a.astype(np.int64), device=device)
+                  for a in (userids, plays.indices, plays.indptr)) + (table,)
+    kw = dict(lr=0.05, reg=0.01, verify_neg=True, bits=None if pt is None else pt.bits,
+              bisect_iters=int(np.ceil(np.log2(max(np.diff(plays.indptr).max(), 2)))) + 1)
+
+    def meshed(m):
+        rep = tuple(torch.as_tensor(a, device=device).clone() for a in start)
+        shard_draws = ([(draws[st, k, 0], draws[st, k, 1]) for k in range(m.size)]
+                       for st in range(steps))
+        _sync(device)
+        t0 = time.perf_counter()
+        counts = bpr_mod._bpr_epoch_sharded({device: rep}, {device: flats}, shard_draws,
+                                            mesh=m, **kw)
+        counts = tuple(int(c) for c in counts)
+        return rep, counts, time.perf_counter() - t0
+
+    got, got_counts, mesh_s = meshed(mesh)
+    want = tuple(torch.as_tensor(a, device=device).clone() for a in start)
+    _sync(device)
+    t0 = time.perf_counter()
+    counts = bpr_mod._bpr_epoch(*want, *flats, (
+        (draws[st, :, 0].reshape(-1), draws[st, :, 1].reshape(-1)) for st in range(steps)),
+        **kw)
+    want_counts = tuple(int(c) for c in counts)
+    single_s = time.perf_counter() - t0
+    same = got_counts == want_counts and all(torch.equal(g, w) for g, w in zip(got, want))
+    wrong, wrong_counts, _ = meshed(virtual_mesh(D - 1, device))
+    wrong_same = wrong_counts == want_counts and all(torch.equal(g, w)
+                                                     for g, w in zip(wrong, want))
+    if not same:
+        raise AssertionError(f"bpr meshed epoch: not the concatenated epoch's bits (counts "
+                             f"{got_counts} vs {want_counts})")
+    if wrong_same:
+        raise AssertionError("bpr meshed epoch: the bar passes the epoch without the last "
+                             "shard's draws")
+    say(10, f"bpr meshed epoch, draws from the host ({plays.shape} nnz={nnz} F={factors}, "
+            f"D={D}, batch {batch} = {D} x local_batch {local}, {steps} steps): the "
+            f"concatenated single-device epoch's bits, (correct, skipped) {got_counts}; the "
+            f"last shard's draws left out: {'the same bits' if wrong_same else 'other bits'}, "
+            f"counts {wrong_counts}: rejected; {mesh_s:.3f} s meshed, {single_s:.3f} s on one "
+            f"device")
+    return mesh_s, single_s
+
+
+def mesh_bpr_fits(plays, device, mesh, sampled_s):
+    """Steps 1b-1d: BPR f=128 on ``virtual_mesh(1)`` against the unmeshed
+    sampled fit (1 epoch), bit for bit; two fits of one seed on ``mesh``
+    (2 epochs), the same bits, s/epoch beside phase 5's sampled epoch
+    (``sampled_s``) and the set-up by step; meshed ``recommend`` for 1024
+    users against the resident call at phase 9's bar. Returns the meshed
+    s/epoch."""
+    from implicit_tpu_torch.bpr import BayesianPersonalizedRanking
+    from implicit_tpu_torch.parallel import virtual_mesh
+
+    kw = dict(factors=128, random_state=1, device=device)
+    one, plain = (BayesianPersonalizedRanking(iterations=1, mesh=m, epoch_mode="sampled", **kw)
+                  for m in (virtual_mesh(1, device), None))
+    for m in (one, plain):
+        m.fit(plays, show_progress=False)
+    if not (np.array_equal(one.user_factors, plain.user_factors)
+            and np.array_equal(one.item_factors, plain.item_factors)):
+        raise AssertionError("bpr: a mesh of one shard differs from the unmeshed sampled fit")
+    say(10, "bpr f=128 on virtual_mesh(1) vs the unmeshed sampled fit (1 epoch): the same bits")
+    del one
+
+    fits = []
+    for k in (1, 2):
+        secs = []
+        model = BayesianPersonalizedRanking(iterations=2, mesh=mesh, **kw)
+        with port_debug_log() as split:
+            t0 = time.perf_counter()
+            model.fit(plays, show_progress=False,
+                      callback=lambda epoch, s, correct, skipped: secs.append((s, correct,
+                                                                               skipped)))
+            wall = time.perf_counter() - t0
+        fits.append(model)
+        say(10, f"bpr f=128 meshed (D={mesh.size}, fit {k}): s/epoch "
+                f"{[round(s, 4) for s, _, _ in secs]}, correct/skipped per epoch "
+                f"{[(c, sk) for _, c, sk in secs]} (phase 5's unmeshed sampled epoch "
+                f"{sampled_s:.4f} s); fit wall {wall:.3f} s, set-up "
+                f"{wall - sum(s for s, _, _ in secs):.3f} s: "
+                + ", ".join(f"{step} {t:.4f}" for step, t in split.steps))
+    a, b = fits
+    if not (np.array_equal(a.user_factors, b.user_factors)
+            and np.array_equal(a.item_factors, b.item_factors)):
+        raise AssertionError("bpr meshed: two fits with the same random_state differ")
+    if not (np.isfinite(a.user_factors).all() and (a.user_factors[:, -1] == 1.0).all()):
+        raise AssertionError("bpr meshed: non-finite factors or a user bias column not 1.0")
+    say(10, "bpr meshed: two fits with random_state=1 give the same bits")
+    mesh_recommend("bpr f=128 meshed", a, plays)
+    return float(np.mean([sec for sec, _, _ in secs]))
+
+
+def mesh_recommend(tag, model, plays):
+    """A meshed model's ``recommend`` for 1024 users (N=10, liked filtered)
+    against the same factors served resident, at phase 9's bar; both
+    walls."""
+    resident = type(model)(factors=model.factors, device=model.device)
+    resident.user_factors, resident.item_factors = model.user_factors, model.item_factors
+    users, liked = served_users(plays)
+    out, walls = {}, {}
+    for which, m in (("mesh", model), ("resident", resident)) * 2:  # round 1 warms the caches
+        _sync(model.device)
+        t0 = time.perf_counter()
+        out[which] = m.recommend(users, liked, N=10)  # host arrays: the call has ended
+        walls[which] = time.perf_counter() - t0
+    err, bad = topk_disagreement(out["mesh"], out["resident"], TOPK_RTOL)
+    if err > TOPK_RTOL or bad:
+        raise AssertionError(f"{tag} recommend: scores {err:.3e}, {len(bad)} rows")
+    say(10, f"{tag} recommend 1024 users N=10 liked filtered: the resident call's ids but at "
+            f"ties, scores within {err:.3e} (bar {TOPK_RTOL}); ms mesh "
+            f"{walls['mesh'] * 1e3:.2f}, resident {walls['resident'] * 1e3:.2f}")
+
+
+def mesh_lmf_arrangements(plays, device, mesh, iterations=5, factors=32, neg_prop=30, seed=1):
+    """Step 2a: LMF over ``mesh`` for ``iterations`` epochs (the re-shuffle
+    at epoch 5): every pool's arrangement, as the card reads it, against a
+    host replay of numpy's stream (the factor draws, the shuffles, the
+    re-shuffle of the unpadded cores), bit for bit. Returns the model, its
+    mean s/epoch over epochs 2-4 (no re-shuffle) and the re-shuffle
+    epoch's seconds."""
+    import torch
+
+    from implicit_tpu_torch.lmf import LogisticMatrixFactorization
+    from implicit_tpu_torch.models import lmf as lmf_mod
+    from implicit_tpu_torch.sparse import BucketedCSR
+    from implicit_tpu_torch.utils import check_random_state
+
+    ui = plays.astype(np.float32).tocsr()
+    ui.sort_indices()
+    iu = ui.T.tocsr()
+    iu.sort_indices()
+    users, items = ui.shape
+    target = max(1 << 14, (768 << 20) // (max(1, neg_prop) * 12))
+    pmax = [max((min(n, c.L * neg_prop) for c in BucketedCSR(m, target_entries=target,
+                                                             grid="pow2").classes), default=1)
+            for m, n in ((ui, items), (iu, users))]
+    rs = check_random_state(seed)
+    rs.standard_normal(size=(items, factors + 2), dtype=np.float32)
+    rs.standard_normal(size=(users, factors + 2), dtype=np.float32)
+    first = [lmf_mod._arrangement(rs, m.indices, p, True) for m, p in zip((ui, iu), pmax)]
+    rs.integers(0, 2**31)
+    cores = [a[:ui.nnz].copy() for a in first]
+    later = []
+    for core, p in zip(cores, pmax):
+        rs.shuffle(core)
+        later.append(lmf_mod._wrap_pad(core, p))
+    expected = [torch.as_tensor(a.astype(np.int64), device=device)
+                for epoch in range(iterations)
+                for a in (first if epoch < lmf_mod._POOL_RESHUFFLE_EPOCHS else later)]
+    seen = []
+    build = lmf_mod._build_pool
+
+    def spy(Y, arr, split):
+        seen.append(len(seen) < len(expected) and torch.equal(arr, expected[len(seen)]))
+        return build(Y, arr, split)
+
+    secs = []
+    model = LogisticMatrixFactorization(factors=factors, neg_prop=neg_prop,
+                                        iterations=iterations, random_state=seed, mesh=mesh,
+                                        device=device)
+    lmf_mod._build_pool = spy
+    try:
+        with port_debug_log() as split:
+            t0 = time.perf_counter()
+            model.fit(plays, show_progress=False, callback=lambda epoch, s: secs.append(s))
+            wall = time.perf_counter() - t0
+    finally:
+        lmf_mod._build_pool = build
+    del expected
+    if len(seen) != 2 * iterations or not all(seen):
+        raise AssertionError(f"lmf meshed: arrangements read {seen} against the host replay")
+    if not split.routes or "window" not in split.routes[0]:
+        raise AssertionError(f"lmf meshed: no window pools ({split.routes})")
+    U, V = model.user_factors, model.item_factors
+    if not (np.isfinite(U).all() and (U[:, -2] == 1.0).all() and (V[:, -1] == 1.0).all()):
+        raise AssertionError("lmf meshed: non-finite factors or a pinned column not 1.0")
+    say(10, f"lmf f={factors} neg_prop={neg_prop} meshed (D={mesh.size}), {iterations} epochs: "
+            f"{split.routes[0]}; all {len(seen)} pools read the host replay's arrangements "
+            f"(the re-shuffle in epoch {lmf_mod._POOL_RESHUFFLE_EPOCHS + 1}), bit for bit; "
+            f"s/epoch {[round(s, 4) for s in secs]} (the numpy re-shuffle of both cores and "
+            f"their upload in epoch {lmf_mod._POOL_RESHUFFLE_EPOCHS + 1}); fit wall {wall:.3f} s, "
+            f"set-up {wall - sum(secs):.3f} s: "
+            + ", ".join(f"{st} {t:.4f}" for st, t in split.steps))
+    steady = secs[1:lmf_mod._POOL_RESHUFFLE_EPOCHS] or secs
+    return model, float(np.mean(steady)), secs[lmf_mod._POOL_RESHUFFLE_EPOCHS:][:1]
+
+
+def mesh_lmf_update_check(device, D, plays=None, seed=6, factors=32, neg_prop=3):
+    """Step 2b: one meshed LMF class update (glued pool) of the class with
+    the most chunks, with draws made on the host, on ``device`` and on the
+    CPU, each over ``virtual_mesh(D)``, at phase 5's LMF bar (2e-3 of
+    scale); the same bar must reject the CPU result with the last shard's
+    slice of every chunk left unwritten. Returns the error and the wrong
+    result's."""
+    import torch
+
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+    from implicit_tpu_torch.models import lmf as lmf_mod
+    from implicit_tpu_torch.parallel import shard_buckets, virtual_mesh
+    from implicit_tpu_torch.sparse import BucketedCSR
+
+    if plays is None:
+        plays = generate_synthetic(3000, 1500, 90_000, seed=5).astype(np.float32)
+    plays.sort_indices()
+    bucketed = BucketedCSR(plays, target_entries=1 << 14, grid="pow2")
+    rng = np.random.default_rng(seed)
+    users, items = plays.shape
+    width = factors + 2
+    X0, Y0 = (rng.standard_normal((n, width), dtype=np.float32) * 0.3 for n in (users, items))
+    d0 = 0.5 + rng.random((users, width), dtype=np.float32)
+    ci = max(range(len(bucketed.classes)), key=lambda c: bucketed.classes[c].n_chunks)
+    host_cls = shard_buckets(bucketed, virtual_mesh(D, "cpu")).classes[ci]
+    neg_count = min(items, host_cls.L * neg_prop)
+    arr = rng.permutation(plays.indices).astype(np.int64)
+    arr = np.concatenate([arr, arr[:neg_count]])
+    G = -(-host_cls.C // 8)
+    draws = rng.integers(0, plays.nnz, size=(host_cls.n_chunks, D, G))
+
+    def run(dev, drop_last=False):
+        mesh = virtual_mesh(D, dev)
+        dev = mesh.devices[0]
+        cls = shard_buckets(bucketed, mesh).classes[ci]
+        X, dss, Y = (torch.as_tensor(a, device=dev).clone() for a in (X0, d0, Y0))
+        real = lmf_mod._real_positions(cls, mesh, users)
+        if drop_last:  # the positions of the last shard's slice left unwritten
+            real = [{d: p[p < (D - 1) * cls.C] for d, p in r.items()} for r in real]
+        lmf_mod._lmf_class_update_sharded(
+            {dev: (X, dss, Y)},
+            {dev: lmf_mod._build_pool(Y, torch.as_tensor(arr, device=dev), False)}, cls,
+            [[torch.as_tensor(x, device=dev) for x in chunk] for chunk in draws], 1.0, 0.6,
+            neg_prop, neg_count, -2, mesh, real, True)
+        return X.cpu(), dss.cpu()
+
+    err, wrong_err = scale_bar("lmf meshed injected draws", run(device), run("cpu"),
+                               run("cpu", drop_last=True), TOL["bf16"],
+                               what="the update missing the last shard's slice")
+    say(10, f"lmf meshed class update (glued pool, F={width}, L={host_cls.L}, "
+            f"{host_cls.n_chunks} chunks of {D} x {host_cls.C} rows), draws from the host: "
+            f"card vs CPU max err {err:.3e} of scale (X, dss each; bar {TOL['bf16']}); the last "
+            f"shard's slice unwritten: {wrong_err:.3e}, rejected")
+    return err, wrong_err
+
+
+class DropLastRowBlock:
+    """A stand-in for ``nearest_neighbours._dense_gramian_meshed`` that
+    zeroes the last shard's row block of the gramian it returns: what the
+    meshed route bar must reject."""
+
+    def __init__(self, nn):
+        self.nn, self.build = nn, nn._dense_gramian_meshed
+
+    def __enter__(self):
+        def build(user_items, mesh):
+            S, block = self.build(user_items, mesh)
+            S[-1].zero_()
+            return S, block
+
+        self.nn._dense_gramian_meshed = build
+        return self
+
+    def __exit__(self, *exc):
+        self.nn._dense_gramian_meshed = self.build
+
+
+def mesh_knn_check(weighted, want, device, mesh, K=20):
+    """Step 4: BM25 K=20 weights through the device route over ``mesh``
+    against ``want``, the unmeshed device route's similarity, at phase 6's
+    route bar (values within 1e-5, neighbours equal up to ties at the K-th
+    score); the same bar must reject a meshed gramian missing its last
+    shard's row block; a second build gives the same bits. Returns the
+    first build's wall and gramian seconds."""
+    from implicit_tpu_torch import nearest_neighbours as nn
+
+    def build():
+        with port_debug_log() as split:
+            _sync(device)
+            t0 = time.perf_counter()
+            sim = nn.all_pairs_knn(weighted, K, method="device", mesh=mesh,
+                                   device=device).tocsr()
+            wall = time.perf_counter() - t0
+        return sim, wall, dict(split.item_steps)
+
+    sim, wall, steps = build()
+    err, bad = knn_disagreement(sim, want, KNN_RTOL)
+    if err > KNN_RTOL or bad:
+        raise AssertionError(f"knn meshed vs unmeshed device route: values {err:.3e} (bar "
+                             f"{KNN_RTOL}), {len(bad)} rows with other neighbours: {bad[:5]}")
+    with DropLastRowBlock(nn):
+        wrong = nn.all_pairs_knn(weighted, K, method="device", mesh=mesh, device=device).tocsr()
+    wrong_err, wrong_bad = knn_disagreement(wrong, want, KNN_RTOL)
+    if not (wrong_err > KNN_RTOL or wrong_bad):
+        raise AssertionError("knn meshed: the route bar passes a gramian missing its last "
+                             "shard's row block")
+    again, again_s, _ = build()
+    if not all(np.array_equal(getattr(sim, f), getattr(again, f))
+               for f in ("indptr", "indices", "data")):
+        raise AssertionError("knn meshed: two builds differ")
+    users, items = weighted.shape
+    say(10, f"bm25 K={K} meshed device route {weighted.shape} nnz={weighted.nnz} (D={mesh.size}, "
+            f"row blocks of {-(-items // mesh.size)}): values within {err:.3e} of the unmeshed "
+            f"route's (bar {KNN_RTOL}), neighbours equal but at ties; the last row block "
+            f"missing: {len(wrong_bad)} rows with other neighbours, rejected; a second build "
+            f"({again_s:.3f} s) the same bits")
+    return wall, steps
+
+
+def mesh_ease_closed_form(binary, device, mesh, lam=250.0, n_cols=64):
+    """Step 5a: ``ease_weights(mesh=)`` checked by phase 6's closed form on
+    ``n_cols`` random columns; weights solved with lam off by 10% must
+    fail. Returns both residuals."""
+    import torch
+
+    from implicit_tpu_torch import ease
+    from implicit_tpu_torch.nearest_neighbours import _dense_gramian_device
+
+    items = binary.shape[1]
+    S = _dense_gramian_device(binary, device)  # integer counts: exact in float32
+    J = torch.as_tensor(np.random.default_rng(3).choice(items, min(n_cols, items), replace=False),
+                        device=device)
+    errs = {}
+    for used in (lam, 1.1 * lam):
+        B = ease.ease_weights(binary, used, mesh=mesh, device=device)
+        errs[used] = ease_closed_form(S, B, lam, J)
+        del B
+    del S
+    ok, off = errs[lam], errs[1.1 * lam]
+    if not ok <= EASE_BAR:
+        raise AssertionError(f"ease meshed closed form: {ok:.3e} > {EASE_BAR}")
+    if off <= EASE_BAR:
+        raise AssertionError(f"ease meshed closed form: weights with lam off by 10% pass "
+                             f"({off:.3e})")
+    say(10, f"ease meshed (D={mesh.size}) closed form on {len(J)} columns: {ok:.3e} of max "
+            f"|lam B[:, J]| (bar {EASE_BAR}); lam off by 10%: {off:.3e}, rejected")
+    return ok, off
+
+
+def mesh_ease_fit(ml, device, mesh, want, phase6):
+    """Step 5b: ``EASERecommender(K=100, mesh=)`` at the ML-20M shape: its
+    steps and peak device memory, and its similarity against phase 6's
+    unmeshed one (``want``): neighbour ids equal up to ties, values within
+    MESH_EASE_RTOL."""
+    import torch
+
+    from implicit_tpu_torch import ease
+
+    model = ease.EASERecommender(K=100, mesh=mesh, device=device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    with port_debug_log() as split:
+        t0 = time.perf_counter()
+        model.fit(ml, show_progress=False)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    err, bad = knn_disagreement(model.similarity, want, MESH_EASE_RTOL)
+    say(10, f"ease K=100 lam=250 meshed (D={mesh.size}) {ml.shape}: fit {wall:.3f} s "
+            f"(phase 6 unmeshed {phase6['wall']:.3f} s): " + ", ".join(
+                f"{step} {secs:.4f}" for step, secs in split.item_steps)
+            + f" s; peak device memory {peak / 2**30:.2f} GiB (phase 6 "
+              f"{phase6['peak'] / 2**30:.2f}); against the unmeshed similarity: values within "
+              f"{err:.3e} (bar {MESH_EASE_RTOL}), {len(bad)} rows with other neighbours beyond "
+              f"ties")
+    if err > MESH_EASE_RTOL or bad:
+        raise AssertionError(f"ease meshed vs unmeshed: values {err:.3e}, {len(bad)} rows "
+                             f"{bad[:5]}")
+
+
+def phase_mesh_fits(device, plays, sgd, item_item):
+    """Phase 10: the meshed BPR, LMF, BM25 and EASE fits on
+    ``virtual_mesh(MESH_D, device)``. ``plays`` is phase 3's data, ``sgd``
+    phase 5's s/epoch, ``item_item`` phase 6's matrix and results."""
+    import torch
+
+    from implicit_tpu_torch.parallel import virtual_mesh
+
+    t_phase = time.perf_counter()
+    mesh = virtual_mesh(MESH_D, device)
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        say(10, f"step {name}: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        return out
+
+    step("bpr epoch, draws from the host", mesh_bpr_epoch_check, plays, device, mesh)
+    bpr_s = step("bpr fits", mesh_bpr_fits, plays, device, mesh, sgd["bpr_sampled"])
+    model, lmf_s, reshuffle_s = step("lmf arrangements", mesh_lmf_arrangements, plays, device,
+                                     mesh)
+    mesh_recommend("lmf f=32 meshed", model, plays)
+    del model
+    step("lmf class update, draws from the host", mesh_lmf_update_check, device, MESH_D)
+    say(10, f"meshed s/epoch (D={MESH_D}): bpr f=128 sampled {bpr_s:.4f} (both epochs of the "
+            f"second fit) against phase 5's {sgd['bpr_sampled']:.4f} "
+            f"({bpr_s / sgd['bpr_sampled']:.2f}x); lmf f=32 {lmf_s:.4f} (epochs 2-4) against "
+            f"phase 5's {sgd['lmf']:.4f} ({lmf_s / sgd['lmf']:.2f}x), the re-shuffle epoch "
+            f"{[round(t, 4) for t in reshuffle_s]}")
+    step("clustered quality", sgd_quality, device, mesh, 10)
+
+    knn = item_item["knn"]
+    wall, steps = step("bm25 meshed", mesh_knn_check, item_item["weighted"], knn["sim"], device,
+                       mesh)
+    users, items = item_item["weighted"].shape
+    flops = 2.0 * items * items * users
+    say(10, f"bm25 K=20 meshed: wall {wall:.3f} s (gramian {steps['gramian']:.3f} s = "
+            f"{flops / steps['gramian'] / 1e12:.2f} TFLOP/s incl. the upload, top-k "
+            f"{steps['top-k']:.3f} s) against phase 6's unmeshed {knn['wall']:.3f} s (gramian "
+            f"{knn['gramian']:.3f} s = {flops / knn['gramian'] / 1e12:.2f} TFLOP/s)")
+    binary = item_item["ml"].copy()
+    binary.data = np.ones_like(binary.data)
+    step("ease closed form", mesh_ease_closed_form, binary, device, mesh)
+    del binary
+    step("ease fit", mesh_ease_fit, item_item["ml"], device, mesh, item_item["ease_sim"],
+         item_item["ease"])
+    say(10, f"phase 10 wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def kernel_rows(kernels, launches):
     """One row per kernel for the ``{"kernels": [...]}`` line: the main paths'
     launches (all variants), the largest error over every case, the float32
@@ -2804,12 +3293,13 @@ def main():
     launches, f32_factors, phase3 = phase_main_path(device, plays)
     phase_quality(device)
     phase_quality(device, gather_quant=True, dtype=np.float16)
-    phase_sgd(device, plays)
-    phase_item_item(device, plays)
+    sgd = phase_sgd(device, plays)
+    item_item = phase_item_item(device, plays)
     phase_serving(device, plays, f32_factors)
     phase_idioms(device, plays, f32_factors)
     for k, v in phase_mesh(device, plays, f32_factors, phase3).items():
         launches[k] = launches.get(k, 0) + v
+    phase_mesh_fits(device, plays, sgd, item_item)
 
     print(json.dumps({"kernels": kernel_rows(kernels, launches)}))
     print(gpu_line())

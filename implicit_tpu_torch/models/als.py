@@ -22,7 +22,7 @@ from tqdm.auto import tqdm
 from .._device import timed_step
 from ..ops import als as als_ops
 from ..parallel import als_sharded
-from ..parallel.mesh import Mesh
+from ..parallel.mesh import check_mesh_arg
 from ..sparse import BucketedCSR, als_chunk_target, pack_pair_on_device
 from ..utils import check_csr, check_random_state
 from .mf_base import MatrixFactorizationBase
@@ -144,10 +144,7 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
         self.fit_callback = None
         self.cg_steps = 3
         self.random_state = random_state
-        if not (mesh is None or isinstance(mesh, Mesh)
-                or (isinstance(mesh, (int, np.integer)) and not isinstance(mesh, bool)
-                    and mesh >= 1)):
-            raise ValueError(f"mesh must be None, a parallel.Mesh or an int >= 1, got {mesh!r}")
+        check_mesh_arg(mesh)
         self.mesh = mesh
         if grid not in ("auto", "pow2", "fine"):
             raise ValueError(f"grid must be 'auto', 'pow2' or 'fine', got {grid!r}")

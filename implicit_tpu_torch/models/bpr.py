@@ -1,4 +1,4 @@
-"""Bayesian Personalized Ranking on one device.
+"""Bayesian Personalized Ranking on one device or a mesh.
 
 The counterpart of ``implicit_tpu/models/bpr.py``: pairwise sigmoid ranking
 SGD over (user, liked, disliked) triples, with an extra trailing column on
@@ -10,7 +10,9 @@ deterministic schedule, in one of two epochs:
   the padded chunks of a :class:`~implicit_tpu_torch.sparse.BucketedCSR`
   (``_bpr_epoch_grouped``);
 - sampled: nnz uniform positives with replacement, in minibatches
-  (``_bpr_epoch``).
+  (``_bpr_epoch``); over a mesh, each shard samples its slice of every
+  minibatch and every device's replica applies the gathered batch
+  (``_bpr_epoch_sharded``, always this epoch, as in the JAX package).
 
 Both draw each negative from the interaction multiset (the exact popularity
 draw) and skip negatives the user liked, checked against the cuckoo pair
@@ -20,7 +22,7 @@ bisection over the CSR row.
 Draws: each step's index draws come from a draw function on the model's
 ``torch.Generator`` (``_sample_draws``, ``_group_draws``), apart from the
 update, so the epochs can be fed any draws (the tests feed the JAX
-package's).
+package's); ``_shard_sample_draws`` draws a meshed epoch's per shard.
 
 Accumulation: rows that collide within a step sum their updates in an
 order fixed by the inputs (``_scatter_add``), so two fits with the same
@@ -40,6 +42,7 @@ from tqdm.auto import tqdm
 
 from .._device import full_f32_matmul, timed_step
 from ..ops import membership
+from ..parallel.mesh import check_mesh_arg
 from ..sparse import BucketedCSR
 from ..utils import check_csr, check_random_state
 from .mf_base import MatrixFactorizationBase
@@ -103,6 +106,18 @@ def _sample_draws(gen, steps, batch, n_samples):
                     for _ in range(2))
 
 
+def _shard_sample_draws(gen, steps, local_batch, n_samples, mesh):
+    """The meshed sampled epoch's draws: per step, a list over the shards in
+    order of each shard's (liked_idx, disliked_idx), ``local_batch``
+    uniform positions in [0, n_samples) each, drawn on ``gen``'s device
+    (liked, then disliked, shard by shard) and moved to the shard's device.
+    With one shard this is :func:`_sample_draws`'s sequence."""
+    for _ in range(steps):
+        yield [tuple(torch.randint(0, n_samples, (local_batch,), generator=gen,
+                                   device=gen.device).to(d) for _ in range(2))
+               for d in mesh.devices]
+
+
 def _group_draws(gen, classes, n_samples):
     """The grouped epoch's draws: per chunk, in class and chunk order, a
     (C, L) tensor ``r`` of uniform positions in [0, n_samples) (each entry's
@@ -124,26 +139,88 @@ def _bpr_epoch(X, Y, yb, userids, itemids, indptr, table, draws, lr, reg,
     correct = torch.zeros((), dtype=torch.int64, device=X.device)
     skipped = torch.zeros((), dtype=torch.int64, device=X.device)
     for liked_idx, disliked_idx in draws:
-        u = userids[liked_idx]
-        liked = itemids[liked_idx]
-        disliked = itemids[disliked_idx]
-        skip = _verify_skip(indptr, itemids, table, u, disliked, verify_neg, bisect_iters,
-                            bits)
-
-        xu, yl, yd, bl, bd = X[u], Y[liked], Y[disliked], yb[liked], yb[disliked]
-        z = 1.0 / (1.0 + torch.exp((xu * (yl - yd)).sum(1) + bl - bd))
-
+        u, liked, disliked, skip = _sample(userids, itemids, indptr, table, liked_idx,
+                                           disliked_idx, verify_neg, bisect_iters, bits)
+        rows = _gather_rows(X, Y, yb, u, liked, disliked)
+        z = _logits(rows)
         keep = ~skip
         correct += ((z < 0.5) & keep).sum()
         skipped += skip.sum()
+        _apply_update(X, Y, yb, u, liked, disliked, rows, z, keep, lr, reg)
+    return correct, skipped
 
-        scale = torch.where(keep, lr, 0.0)
-        zc = z[:, None]
-        _scatter_add(X, u, scale[:, None] * (zc * (yl - yd) - reg * xu))
-        _scatter_add(Y, liked, scale[:, None] * (zc * xu - reg * yl))
-        _scatter_add(Y, disliked, scale[:, None] * (-zc * xu - reg * yd))
-        _scatter_add(yb, liked, scale * (z - reg * bl))
-        _scatter_add(yb, disliked, scale * (-z - reg * bd))
+
+def _sample(userids, itemids, indptr, table, liked_idx, disliked_idx, verify_neg,
+            bisect_iters, bits):
+    """A step's (user, liked, disliked) triples from its draws into the
+    (userids, itemids) flats, and which negatives the user liked (skip)."""
+    u = userids[liked_idx]
+    liked = itemids[liked_idx]
+    disliked = itemids[disliked_idx]
+    skip = _verify_skip(indptr, itemids, table, u, disliked, verify_neg, bisect_iters, bits)
+    return u, liked, disliked, skip
+
+
+def _gather_rows(X, Y, yb, u, liked, disliked):
+    """The rows a step reads: (x_u, y_liked, y_disliked, b_liked, b_disliked)."""
+    return X[u], Y[liked], Y[disliked], yb[liked], yb[disliked]
+
+
+def _logits(rows):
+    """z = 1 - sigmoid(score) of each triple, from its gathered rows."""
+    xu, yl, yd, bl, bd = rows
+    return 1.0 / (1.0 + torch.exp((xu * (yl - yd)).sum(1) + bl - bd))
+
+
+def _apply_update(X, Y, yb, u, liked, disliked, rows, z, keep, lr, reg):
+    """One step's SGD update of X, Y and yb in place, from the triples'
+    gathered ``rows`` and logits ``z``; dropped triples (``keep`` False)
+    add zero."""
+    xu, yl, yd, bl, bd = rows
+    scale = torch.where(keep, lr, 0.0)
+    zc = z[:, None]
+    _scatter_add(X, u, scale[:, None] * (zc * (yl - yd) - reg * xu))
+    _scatter_add(Y, liked, scale[:, None] * (zc * xu - reg * yl))
+    _scatter_add(Y, disliked, scale[:, None] * (-zc * xu - reg * yd))
+    _scatter_add(yb, liked, scale * (z - reg * bl))
+    _scatter_add(yb, disliked, scale * (-z - reg * bd))
+
+
+def _bpr_epoch_sharded(replicas, flats, draws, lr, reg, verify_neg, bisect_iters, bits, mesh):
+    """One sampled BPR epoch over ``mesh``, updating every replica in place.
+
+    ``replicas`` and ``flats`` map each distinct device of the mesh to its
+    (X, Y, yb) and its (userids, itemids, indptr, table); ``draws`` yields
+    each step's per-shard (liked_idx, disliked_idx) on the shards' devices
+    (:func:`_shard_sample_draws`). Per step, as the JAX package's
+    ``_build_sharded_epoch``: each shard samples, verifies and scores its
+    slice against its device's replica as it stands at the start of the
+    step; (u, liked, disliked, z, keep) are gathered in shard order (a
+    ``torch.cat``) on every distinct device, which applies the full batch's
+    update once (shards that share a device share its replica). So the
+    epoch computes what :func:`_bpr_epoch` computes on the concatenated
+    draws, and replicas on different devices stay equal. Returns (correct,
+    skipped) as scalars on the mesh's first device.
+    """
+    first = mesh.devices[0]
+    correct = torch.zeros((), dtype=torch.int64, device=first)
+    skipped = torch.zeros((), dtype=torch.int64, device=first)
+    for shard_draws in draws:
+        parts = []
+        for d, (liked_idx, disliked_idx) in zip(mesh.devices, shard_draws):
+            u, liked, disliked, skip = _sample(*flats[d], liked_idx, disliked_idx, verify_neg,
+                                               bisect_iters, bits)
+            z = _logits(_gather_rows(*replicas[d], u, liked, disliked))
+            parts.append((u, liked, disliked, z, ~skip))
+        for d in mesh.distinct():
+            u, liked, disliked, z, keep = (torch.cat([p[i].to(d) for p in parts])
+                                           for i in range(5))
+            if d == first:
+                correct += ((z < 0.5) & keep).sum()
+                skipped += (~keep).sum()
+            X, Y, yb = replicas[d]
+            _apply_update(X, Y, yb, u, liked, disliked, _gather_rows(X, Y, yb, u, liked, disliked),
+                          z, keep, lr, reg)
     return correct, skipped
 
 
@@ -237,8 +314,17 @@ class BayesianPersonalizedRanking(MatrixFactorizationBase):
     random_state : int, RandomState, Generator or None, optional
         Seeds numpy's draw of the starting factors (so the same seed gives
         the JAX package's), then the device generator of the epochs' draws
-    mesh : None
-        Multi-device training is not ported yet; anything but None raises.
+    mesh : parallel.Mesh or int, optional
+        Train and serve over a mesh of devices, from this one process: each
+        shard draws, verifies and scores its slice of every minibatch, the
+        samples and logits are gathered in shard order, and every device's
+        factor replica applies the same full-batch update (deterministic
+        for any mesh size); serving shards the item table, as
+        ``AlternatingLeastSquares(mesh=)`` does. The mesh path always
+        trains ``"sampled"``, whatever ``epoch_mode`` says, as the JAX
+        package's. An int n is ``parallel.create_mesh(n, device)``: n cards
+        on CUDA (raising where fewer are visible), n virtual shards on the
+        CPU. None (default) trains on ``device``.
     epoch_mode : {None, "grouped", "sampled", 0, 1}, optional
         How an epoch visits the training pairs. ``"grouped"`` (1, and the
         default None) streams every positive exactly once per epoch out of
@@ -273,8 +359,7 @@ class BayesianPersonalizedRanking(MatrixFactorizationBase):
         self.dtype = np.dtype(dtype)
         self.verify_negative_samples = verify_negative_samples
         self.random_state = random_state
-        if mesh is not None:
-            raise NotImplementedError("mesh= (multi-device training) is not ported yet")
+        check_mesh_arg(mesh)
         self.mesh = mesh
         self.epoch_mode = epoch_mode
         self._resolve_epoch_mode()
@@ -298,8 +383,10 @@ class BayesianPersonalizedRanking(MatrixFactorizationBase):
         seconds, correct, skipped).
         """
         rs = check_random_state(self.random_state)
-        grouped = self._resolve_epoch_mode() == 1
-        dev = self.device
+        mesh = self._serving_mesh()  # resolved (and refused) before anything is fitted
+        grouped = self._resolve_epoch_mode() == 1 and mesh is None
+        dev = self.device if mesh is None else mesh.devices[0]
+        devices = [dev] if mesh is None else mesh.distinct()
 
         with timed_step("prepare", dev):
             if user_items.dtype != np.float32:
@@ -344,22 +431,26 @@ class BayesianPersonalizedRanking(MatrixFactorizationBase):
 
         # exact O(1) negative verification via the cuckoo pair table; the
         # bisection handles shapes the table can't
-        bits, table = None, None
+        bits, pt = None, None
         if self.verify_negative_samples:
             with timed_step("pair table", dev):
                 pt = membership.build_pair_table(user_items, row_ids=userids)
                 if pt is not None:
-                    bits, table = pt.bits, pt.to_device(dev)
+                    bits = pt.bits
 
-        # device layout: (.., factors) blocks + a separate item-bias vector
-        with timed_step("upload", dev):
-            X = torch.tensor(self.user_factors[:, :F], dtype=torch.float32, device=dev)
-            Y = torch.tensor(self.item_factors[:, :F], dtype=torch.float32, device=dev)
-            yb = torch.tensor(self.item_factors[:, F], dtype=torch.float32, device=dev)
-            itemids = torch.as_tensor(user_items.indices.astype(np.int64), device=dev)
-            indptr = torch.as_tensor(user_items.indptr.astype(np.int64), device=dev)
-            if not grouped:
-                uids = torch.as_tensor(userids.astype(np.int64), device=dev)
+        # device layout: (.., factors) blocks + a separate item-bias vector,
+        # one replica (and one copy of the flats) per distinct device
+        replicas, flats = {}, {}
+        with timed_step("upload", devices):
+            for d in devices:
+                replicas[d] = tuple(torch.tensor(a, dtype=torch.float32, device=d) for a in (
+                    self.user_factors[:, :F], self.item_factors[:, :F], self.item_factors[:, F]))
+                flats[d] = (None if grouped else torch.as_tensor(userids.astype(np.int64), device=d),
+                            torch.as_tensor(user_items.indices.astype(np.int64), device=d),
+                            torch.as_tensor(user_items.indptr.astype(np.int64), device=d),
+                            None if pt is None else pt.to_device(d))
+        X, Y, yb = replicas[dev]
+        uids, itemids, indptr, table = flats[dev]
         if grouped:
             with timed_step("chunks", dev):
                 classes = grouped_classes(user_items, dev)
@@ -380,6 +471,14 @@ class BayesianPersonalizedRanking(MatrixFactorizationBase):
                         X, Y, yb, classes, itemids, indptr, table,
                         _group_draws(gen, classes, samples), lr, reg, **verify)
                     total = samples  # every positive visited exactly once
+                elif mesh is not None:
+                    # each shard draws ceil(batch / D) samples per step
+                    local_batch = -(-batch // mesh.size)
+                    correct, skipped = _bpr_epoch_sharded(
+                        replicas, flats,
+                        _shard_sample_draws(gen, steps, local_batch, samples, mesh), lr, reg,
+                        mesh=mesh, **verify)
+                    total = steps * local_batch * mesh.size
                 else:
                     correct, skipped = _bpr_epoch(
                         X, Y, yb, uids, itemids, indptr, table,

@@ -1,4 +1,4 @@
-"""Logistic Matrix Factorization on one device.
+"""Logistic Matrix Factorization on one device or a mesh.
 
 The counterpart of ``implicit_tpu/models/lmf.py``: Johnson's 'Logistic
 Matrix Factorization for Implicit Feedback Data', trained with per-row
@@ -28,6 +28,11 @@ Draws: each chunk's window offsets (or legacy entry draws) come from the
 model's ``torch.Generator`` (``_pool_draws``), apart from the update, so the
 update can be fed any draws. The arrangements are shuffled with numpy's
 stream, so they are the JAX package's for the same ``random_state``.
+
+Over a mesh (``mesh=``, :meth:`LogisticMatrixFactorization._fit_sharded`),
+the factors are replicated on every device and each chunk's rows split over
+the shards (``_lmf_class_update_sharded``, ``_shard_pool_draws``), as the
+JAX package's meshed fit; its periodic re-shuffle is numpy's there too.
 """
 
 import logging
@@ -39,7 +44,8 @@ import torch.nn.functional as nnf
 from tqdm.auto import tqdm
 
 from .._device import full_f32_matmul, timed_step
-from ..sparse import pack_pair_on_device
+from ..parallel.mesh import check_mesh_arg, replicated, shard_buckets
+from ..sparse import BucketedCSR, pack_pair_on_device
 from ..utils import check_csr, check_random_state
 from .mf_base import MatrixFactorizationBase
 
@@ -214,6 +220,64 @@ def _lmf_class_update(X, dss, Y, neg_src, cls, draws, lr, reg, neg_prop, neg_cou
     X[:, pin_col] = 1.0
 
 
+def _shard_pool_draws(gen, cls, neg_count, span, window, mesh):
+    """The meshed class update's draws: per chunk, in chunk order, a list
+    over the shards of each shard's (G,) window offsets or (G, neg_count)
+    legacy positions in [0, span), G = ceil(C / 8) of the shard's C rows of
+    a chunk; drawn on ``gen``'s device shard by shard and moved to the
+    shard's device."""
+    G = -(-cls.C // 8)
+    shape = (G,) if window else (G, neg_count)
+    for _ in range(cls.n_chunks):
+        yield [torch.randint(0, span, shape, generator=gen, device=gen.device).to(d)
+               for d in mesh.devices]
+
+
+def _real_positions(cls, mesh, n_rows):
+    """Per chunk of a ``parallel.ShardedBucketClass``, {device: the positions
+    of the chunk's real rows in its shard-order concatenation}, on each
+    distinct device: the rows a meshed update writes. The sentinel rows (id
+    ``n_rows``) that end a chunk and pad it to a multiple of the mesh size,
+    filling the last shards' slices, are left out."""
+    rows = torch.cat([r.cpu() for r in cls.rows], dim=1)
+    pos = [torch.nonzero(r < n_rows).squeeze(1) for r in rows]
+    return [{d: p.to(d) for d in mesh.distinct()} for p in pos]
+
+
+def _lmf_class_update_sharded(replicas, pools, cls, draws, lr, reg, neg_prop, neg_count,
+                              pin_col, mesh, real, window=True):
+    """The meshed AdaGrad update, in place, of every chunk of one bucket
+    class (the JAX package's ``_build_sharded_class_update``).
+
+    ``replicas`` maps each distinct device to its (X, dss, Y), ``pools`` to
+    its pool (or column array); ``cls`` is a ``parallel.ShardedBucketClass``,
+    ``draws`` yields each chunk's per-shard draws
+    (:func:`_shard_pool_draws`) and ``real`` each chunk's real-row positions
+    (:func:`_real_positions`). Per chunk, every shard runs ``_row_update``
+    on its row slice against its device's replica; the solved rows and
+    their AdaGrad state, gathered in shard order, are written on every
+    distinct device, sentinel rows left out. Then the pinned column is set
+    back to 1.
+    """
+    draws = iter(draws)
+    for j in range(cls.n_chunks):
+        parts = []
+        for k, (d, draw) in enumerate(zip(mesh.devices, next(draws))):
+            X, dss, Y = replicas[d]
+            x, dd = _row_update(X, dss, Y, pools[d], cls.rows[k][j], cls.indices[k][j],
+                                cls.data[k][j], cls.lengths[k][j], draw, lr, reg, neg_prop,
+                                neg_count, window)
+            parts.append((cls.rows[k][j], x, dd))
+        for d in mesh.distinct():
+            rows, x, dd = (torch.cat([p[i].to(d) for p in parts]) for i in range(3))
+            X, dss, _ = replicas[d]
+            keep = real[j][d]
+            X[rows[keep]] = x[keep]
+            dss[rows[keep]] = dd[keep]
+    for d in mesh.distinct():
+        replicas[d][0][:, pin_col] = 1.0
+
+
 class LogisticMatrixFactorization(MatrixFactorizationBase):
     """Logistic Matrix Factorization.
 
@@ -238,8 +302,17 @@ class LogisticMatrixFactorization(MatrixFactorizationBase):
         Seeds numpy's draws of the starting factors and the pool
         arrangements (so the same seed gives the JAX package's), then the
         device generator of the epochs' draws
-    mesh : None
-        Multi-device training is not ported yet; anything but None raises.
+    mesh : parallel.Mesh or int, optional
+        Train and serve over a mesh of devices, from this one process: each
+        chunk's rows split over the shards (``parallel.shard_buckets`` of
+        the host bucketing), every shard updates its slice against its own
+        negative pools, and the updated rows are gathered and written into
+        every device's factor replica; serving shards the item table, as
+        ``AlternatingLeastSquares(mesh=)`` does. The pools re-shuffle with
+        numpy's stream, as the JAX package's meshed fit does, so the
+        arrangements are its. An int n is ``parallel.create_mesh(n,
+        device)``: n cards on CUDA (raising where fewer are visible), n
+        virtual shards on the CPU. None (default) trains on ``device``.
     ingest : {"auto", "host", "device"}, optional
         Where the interactions are packed into the bucketed tensors
         (:func:`~implicit_tpu_torch.sparse.pack_pair_on_device`); "auto" is
@@ -271,8 +344,7 @@ class LogisticMatrixFactorization(MatrixFactorizationBase):
         self.dtype = np.dtype(dtype)
         self.neg_prop = neg_prop
         self.random_state = random_state
-        if mesh is not None:
-            raise NotImplementedError("mesh= (multi-device training) is not ported yet")
+        check_mesh_arg(mesh)
         self.mesh = mesh
         if ingest not in ("auto", "host", "device"):
             raise ValueError(f"ingest must be 'auto', 'host' or 'device', got {ingest!r}")
@@ -285,7 +357,8 @@ class LogisticMatrixFactorization(MatrixFactorizationBase):
         seconds), the device synchronized first.
         """
         rs = check_random_state(self.random_state)
-        dev = self.device
+        mesh = self._serving_mesh()  # resolved (and refused) before anything is fitted
+        dev = self.device if mesh is None else mesh.devices[0]
 
         with timed_step("prepare", dev):
             if user_items.dtype != np.float32:
@@ -326,6 +399,9 @@ class LogisticMatrixFactorization(MatrixFactorizationBase):
         # score matrix and its sigmoid are the big live intermediates, so
         # C * L is bounded to keep ~3 float32 copies of them within 768 MB
         target = max(1 << 14, (768 << 20) // (max(1, self.neg_prop) * 12))
+        if mesh is not None:
+            return self._fit_sharded(user_items, item_users, rs, target, mesh, show_progress,
+                                     callback)
         user_buckets, item_buckets = pack_pair_on_device(
             user_items, item_users, target_entries=target, grid="pow2", mode=self.ingest,
             device=dev)
@@ -338,18 +414,10 @@ class LogisticMatrixFactorization(MatrixFactorizationBase):
         # column multiset, shuffled once per fit, wrap-padded by the largest
         # pool so every offset in [0, nnz) has a full window
         span = user_items.nnz
-        neg_counts = {
-            side: [int(min(n_other, cls.L * self.neg_prop)) for cls in buckets.classes]
-            for side, buckets, n_other in (("user", user_buckets, items),
-                                           ("item", item_buckets, users))}
-        pmax_u, pmax_i = (max(neg_counts[side], default=1) for side in ("user", "item"))
-        width = self.factors + 2
-        split = _pool_split(width)
-        window_u = _pool_bytes(span, pmax_u, width) <= _POOL_BYTE_BUDGET
-        window_i = _pool_bytes(span, pmax_i, width) <= _POOL_BYTE_BUDGET
-        log.debug("LMF negative pools: user side %s, item side %s, tails %s",
-                  "window" if window_u else "legacy", "window" if window_i else "legacy",
-                  "split" if split else "glued")
+        neg_counts, pmax, window, split = self._pool_routes(user_buckets, item_buckets, span,
+                                                            users, items)
+        (pmax_u, pmax_i), (window_u, window_i) = (
+            (d["user"], d["item"]) for d in (pmax, window))
         with timed_step("arrangements", dev):
             arr_u, arr_i = (
                 torch.as_tensor(_arrangement(rs, cols, pmax, window).astype(np.int64), device=dev)
@@ -389,6 +457,99 @@ class LogisticMatrixFactorization(MatrixFactorizationBase):
                     callback(epoch, time.time() - s)
 
         with timed_step("copy back", dev):
+            self.user_factors = X.cpu().numpy().astype(self.dtype)
+            self.item_factors = Y.cpu().numpy().astype(self.dtype)
+        self._check_factors(X, Y)
+
+    def _pool_routes(self, user_buckets, item_buckets, span, users, items):
+        """Each side's pool sizes per class, its largest, whether its pool is
+        a window (else legacy draws), and whether the tails split out."""
+        neg_counts = {
+            side: [int(min(n_other, cls.L * self.neg_prop)) for cls in buckets.classes]
+            for side, buckets, n_other in (("user", user_buckets, items),
+                                           ("item", item_buckets, users))}
+        pmax = {side: max(neg_counts[side], default=1) for side in neg_counts}
+        width = self.factors + 2
+        window = {side: _pool_bytes(span, pmax[side], width) <= _POOL_BYTE_BUDGET
+                  for side in neg_counts}
+        split = _pool_split(width)
+        log.debug("LMF negative pools: user side %s, item side %s, tails %s",
+                  "window" if window["user"] else "legacy",
+                  "window" if window["item"] else "legacy", "split" if split else "glued")
+        return neg_counts, pmax, window, split
+
+    def _fit_sharded(self, user_items, item_users, rs, target, mesh, show_progress, callback):
+        """The fit over ``mesh`` on the replicated-factor layout, as the JAX
+        package's meshed fit: the host bucketing (pow2 grid) with every
+        chunk's rows split over the shards (``parallel.shard_buckets``),
+        the factors, AdaGrad state and pools replicated on every distinct
+        device, and the periodic re-shuffle made with numpy's stream on the
+        host (``rs.shuffle`` of the unpadded arrangement), so the
+        arrangements equal the JAX package's meshed fit's."""
+        devices, first = mesh.distinct(), mesh.devices[0]
+        users, items = user_items.shape
+        with timed_step("sharded pack", devices):
+            user_buckets, item_buckets = (
+                shard_buckets(BucketedCSR(m, target_entries=target, grid="pow2"), mesh)
+                for m in (user_items, item_users))
+            real = {side: [_real_positions(cls, mesh, b.n_rows) for cls in b.classes]
+                    for side, b in (("user", user_buckets), ("item", item_buckets))}
+        with timed_step("factor upload", devices):
+            replicas = {}
+            for d, X, Y in zip(mesh.devices,
+                               replicated(mesh, np.asarray(self.user_factors, np.float32)),
+                               replicated(mesh, np.asarray(self.item_factors, np.float32))):
+                replicas[d] = (X, torch.zeros_like(X), Y, torch.zeros_like(Y))
+
+        span = user_items.nnz
+        neg_counts, pmax, window, split = self._pool_routes(user_buckets, item_buckets, span,
+                                                            users, items)
+        with timed_step("arrangements", devices):
+            host = {side: _arrangement(rs, cols, pmax[side], window[side]).astype(np.int64)
+                    for side, cols in (("user", user_items.indices),
+                                       ("item", item_users.indices))}
+            # the unpadded cores, re-shuffled on the host every few epochs
+            core = {side: host[side][:span].copy() for side in host if window[side]}
+            arr = {side: dict(zip(mesh.devices, replicated(mesh, host[side]))) for side in host}
+            del host
+
+        gen = torch.Generator(device=first)
+        gen.manual_seed(int(rs.integers(0, 2**31)))
+        kw = dict(lr=float(np.float32(self.learning_rate)),
+                  reg=float(np.float32(self.regularization)), neg_prop=self.neg_prop)
+
+        log.debug("Running %i LMF training epochs over %r", self.iterations, mesh)
+        with tqdm(total=self.iterations, disable=not show_progress) as progress:
+            for epoch in range(self.iterations):
+                s = time.time()
+                if epoch and epoch % _POOL_RESHUFFLE_EPOCHS == 0:
+                    for side in core:
+                        rs.shuffle(core[side])
+                        arr[side] = dict(zip(mesh.devices, replicated(
+                            mesh, _wrap_pad(core[side], pmax[side]))))
+                for side, buckets, (t, o), pin in (("user", user_buckets, (0, 2), -2),
+                                                   ("item", item_buckets, (2, 0), -1)):
+                    # each device's pool snapshots its replica of the fixed side
+                    pools = {d: _build_pool(replicas[d][o], arr[side][d], split)
+                             if window[side] else arr[side][d] for d in devices}
+                    views = {d: (r[t], r[t + 1], r[o]) for d, r in replicas.items()}
+                    for cls, neg_count, cls_real in zip(buckets.classes, neg_counts[side],
+                                                        real[side]):
+                        _lmf_class_update_sharded(
+                            views, pools, cls,
+                            _shard_pool_draws(gen, cls, neg_count, span, window[side], mesh),
+                            neg_count=neg_count, pin_col=pin, mesh=mesh, real=cls_real,
+                            window=window[side], **kw)
+                    del pools
+                progress.update(1)
+                if callback:
+                    for d in devices:
+                        if d.type == "cuda":
+                            torch.cuda.synchronize(d)  # the callback reports wall time
+                    callback(epoch, time.time() - s)
+
+        X, _, Y, _ = replicas[first]
+        with timed_step("copy back", devices):
             self.user_factors = X.cpu().numpy().astype(self.dtype)
             self.item_factors = Y.cpu().numpy().astype(self.dtype)
         self._check_factors(X, Y)

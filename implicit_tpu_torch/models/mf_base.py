@@ -38,7 +38,7 @@ from .._device import resolve_device
 from ..ops.topk import (
     _score_budget_elements, _upload, shard_items_for_topk, topk_async, topk_streaming,
 )
-from ..parallel.mesh import Mesh, create_mesh, virtual_mesh
+from ..parallel.mesh import Mesh, mesh_state, resolve_mesh
 from ..recommender_base import RecommenderBase
 
 # bound on the buffered query rows of one table pass of the streaming
@@ -264,11 +264,7 @@ class MatrixFactorizationBase(RecommenderBase):
         state["_item_factors_dev"] = None
         state["_user_factors_dev"] = None
         state["_mesh_serving_cache"] = {}
-        mesh = state.get("mesh")
-        if isinstance(mesh, Mesh):
-            state["mesh"] = mesh.size
-            state["_mesh_virtual"] = mesh.virtual
-        return state
+        return mesh_state(state)
 
     # -- serving over a mesh -----------------------------------------------------
 
@@ -284,7 +280,7 @@ class MatrixFactorizationBase(RecommenderBase):
         cache = self._mesh_cache_dict()
         key = ("mesh", int(mesh), virtual)
         if key not in cache:
-            cache[key] = (virtual_mesh if virtual else create_mesh)(int(mesh), self.device)
+            cache[key] = resolve_mesh(mesh, self.device, virtual)
         return cache[key]
 
     def _mesh_cache_dict(self):

@@ -1,4 +1,5 @@
-"""Item-item nearest-neighbour models (Cosine / TF-IDF / BM25) on one card.
+"""Item-item nearest-neighbour models (Cosine / TF-IDF / BM25) on one card
+or a mesh.
 
 The counterpart of ``implicit_tpu/nearest_neighbours.py``, with the same
 names. Fitting computes, for every item, the top-K most similar items under
@@ -14,7 +15,8 @@ rule (:func:`_device_knn_wins`, whose constants were measured on an H100):
   bit for bit;
 - "device": a dense float32 item gramian built on the card from densified
   user chunks (``S += DᵀD``, cuBLAS in full float32), then ``torch.topk``
-  over row blocks.
+  over row blocks; with ``mesh=``, the gramian's rows shard over the mesh
+  and each shard selects its own rows' top-K (``_dense_gramian_meshed``).
 
 The JAX package composes this family from XLA ops and host C++; no Pallas
 kernel lies on its path, so the port has no kernel of its own here. The
@@ -33,6 +35,7 @@ import torch
 from ._device import full_f32_matmul, resolve_device, timed_step
 from .models.bpr import _scatter_add
 from .ops.topk import NEG_MAX, _score_budget_elements
+from .parallel.mesh import check_mesh_arg, mesh_state, resolve_mesh
 from .recommender_base import RecommenderBase, _loader
 from .utils import _batch_call, _filter_items_from_results, check_csr
 
@@ -100,22 +103,33 @@ def all_pairs_knn(
     "device" never runs the host route: a catalog over
     ``_DEVICE_KNN_MAX_ITEMS`` items or a negative weight raises instead.
     ``device`` is only resolved where the device route may run, and naming
-    CUDA without a card raises. ``mesh`` is not ported and must be None.
+    CUDA without a card raises.
+
+    ``mesh`` (a ``parallel.Mesh``, or an int n: ``parallel.create_mesh(n,
+    device)``) runs the device route over the mesh: the gramian's rows
+    shard over it (:func:`_dense_gramian_meshed`), dividing its flops and
+    each device's share of it by the mesh size, so the item cap rises by
+    √D (the JAX package's rules, counted in shards). The host route ignores
+    it, and it is resolved only where the device route may run.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh= (multi-device similarity builds) is not ported yet")
+    check_mesh_arg(mesh)
     if method not in ("auto", "host", "device"):
         raise ValueError(f"method must be 'auto', 'host' or 'device', got {method!r}")
     user_items = check_csr(user_items)
+    if method != "host":
+        mesh = resolve_mesh(mesh, device)
+        device = resolve_device(device) if mesh is None else mesh.devices[0]
+    n_shards = 1 if mesh is None else mesh.size
+    item_cap = _device_knn_item_cap(n_shards)
     if method == "auto":
-        device = resolve_device(device)
-        method = "device" if _device_knn_wins(user_items, device, num_threads) else "host"
+        method = ("device" if _device_knn_wins(user_items, device, num_threads, n_shards)
+                  else "host")
     if method == "device":
-        if user_items.shape[1] > _DEVICE_KNN_MAX_ITEMS:
+        if user_items.shape[1] > item_cap:
             raise ValueError(
                 f"method='device' holds a dense {user_items.shape[1]}^2 "
                 f"similarity gramian in device memory; catalogs over "
-                f"{_DEVICE_KNN_MAX_ITEMS} items must use method='host' "
+                f"{item_cap} items must use method='host' "
                 "(the output-sparsity-aware sparse product, which is also faster "
                 "there: its cost scales with co-occurring pairs, not "
                 "items^2 x users)"
@@ -126,7 +140,7 @@ def all_pairs_knn(
                 "gramian cannot distinguish no-co-occurrence from similarity "
                 "0); matrices with negative weights must use method='host'"
             )
-        return _all_pairs_knn_device(user_items, K, resolve_device(device))
+        return _all_pairs_knn_device(user_items, K, device, mesh)
     return _all_pairs_knn_host(user_items, K, num_threads)
 
 
@@ -194,7 +208,13 @@ _HOST_PAIRS_PER_S = 9.8e7
 _SCIPY_PAIRS_PER_S = 4.6e7
 
 
-def _device_knn_wins(csr, device, num_threads=0):
+def _device_knn_item_cap(n_shards=1):
+    """The device route's catalog cap over ``n_shards`` shards: each holds
+    1/D of the gramian, so the cap rises by √D (the JAX package's rule)."""
+    return int(_DEVICE_KNN_MAX_ITEMS * np.sqrt(n_shards))
+
+
+def _device_knn_wins(csr, device, num_threads=0, n_shards=1):
     """Estimated-cost choice between the host sparse product and the
     device gramian; False on a CPU ``device``.
 
@@ -202,16 +222,18 @@ def _device_knn_wins(csr, device, num_threads=0):
     ``_HOST_PAIRS_PER_S`` per thread over ``knn_effective_threads``
     threads). Device cost: a fixed cost per call, 2·items²·users gramian
     flops, the upload of the CSR arrays (8 bytes per entry and per user) and
-    the top-K sweep over items² elements. Catalogs over the item cap and negative weights stay
-    on the host, whose sparse product keeps exact zero and negative
-    similarities.
+    the top-K sweep over items² elements. A mesh of ``n_shards`` divides the
+    gramian and top-K terms by its size and raises the item cap by √D, as
+    in the JAX package (on a virtual mesh too: the rule counts shards, not
+    cards). Catalogs over the item cap and negative weights stay on the
+    host, whose sparse product keeps exact zero and negative similarities.
     """
     from . import native
 
     if device.type != "cuda":
         return False
     users, items = csr.shape
-    if items > _DEVICE_KNN_MAX_ITEMS or items < 2 or csr.nnz == 0:
+    if items > _DEVICE_KNN_MAX_ITEMS * np.sqrt(n_shards) or items < 2 or csr.nnz == 0:
         return False
     if csr.data.min() < 0:
         return False
@@ -223,9 +245,9 @@ def _device_knn_wins(csr, device, num_threads=0):
     host_s = float(degrees @ degrees) / host_rate
     device_s = (
         _DEVICE_CALL_S
-        + 2.0 * float(items) ** 2 * users / _GRAMIAN_FLOPS
+        + 2.0 * float(items) ** 2 * users / (_GRAMIAN_FLOPS * n_shards)
         + 8.0 * (csr.nnz + users) / _H2D_BYTES_PER_S
-        + float(items) ** 2 / _TOPK_ELEMENTS_PER_S
+        + float(items) ** 2 / (_TOPK_ELEMENTS_PER_S * n_shards)
     )
     return device_s < host_s
 
@@ -244,26 +266,64 @@ def _dense_gramian_device(user_items, device):
     s"`` at debug level.
     """
     users, items = user_items.shape
-    chunk = max(8, min(users, _DEVICE_KNN_DENSE_BYTES // max(items, 1)))
-    indptr = np.asarray(user_items.indptr, dtype=np.int64)
     with timed_step("gramian", device, stage=_STAGE):
-        counts = torch.as_tensor(np.diff(indptr), device=device)
-        cols = torch.as_tensor(np.asarray(user_items.indices, dtype=np.int32), device=device)
-        vals = torch.as_tensor(np.asarray(user_items.data, dtype=np.float32), device=device)
-        rows = torch.repeat_interleave(torch.arange(users, device=device), counts,
-                                       output_size=int(indptr[-1]))
         S = torch.zeros((items, items), dtype=torch.float32, device=device)
-        D = torch.empty((min(chunk, users), items), dtype=torch.float32, device=device)
-        for start in range(0, users, chunk):
-            stop = min(start + chunk, users)
-            lo, hi = int(indptr[start]), int(indptr[stop])
-            block = D[: stop - start]
-            block.zero_()
-            flat = (rows[lo:hi] - start) * items + cols[lo:hi]
-            _scatter_add(block.view(-1), flat, vals[lo:hi])
+        for block in _densified_chunks(user_items, device, items):
             with full_f32_matmul():
                 S.addmm_(block.T, block)
     return S
+
+
+def _densified_chunks(user_items, device, width):
+    """Yields the CSR's user chunks (``_DEVICE_KNN_DENSE_BYTES // items``
+    rows each) densified on ``device`` as (rows, ``width``) float32 views of
+    one reused buffer; columns past the matrix's stay zero. The arrays are
+    uploaded once and each chunk sliced from them by ``indptr`` (int64
+    offsets); entries add in the order ``models.bpr._scatter_add`` fixes,
+    duplicates included."""
+    users, items = user_items.shape
+    chunk = max(8, min(users, _DEVICE_KNN_DENSE_BYTES // max(items, 1)))
+    indptr = np.asarray(user_items.indptr, dtype=np.int64)
+    counts = torch.as_tensor(np.diff(indptr), device=device)
+    cols = torch.as_tensor(np.asarray(user_items.indices, dtype=np.int32), device=device)
+    vals = torch.as_tensor(np.asarray(user_items.data, dtype=np.float32), device=device)
+    rows = torch.repeat_interleave(torch.arange(users, device=device), counts,
+                                   output_size=int(indptr[-1]))
+    D = torch.empty((min(chunk, users), width), dtype=torch.float32, device=device)
+    for start in range(0, users, chunk):
+        stop = min(start + chunk, users)
+        lo, hi = int(indptr[start]), int(indptr[stop])
+        block = D[: stop - start]
+        block.zero_()
+        flat = (rows[lo:hi] - start) * width + cols[lo:hi]
+        _scatter_add(block.view(-1), flat, vals[lo:hi])
+        yield block
+
+
+def _dense_gramian_meshed(user_items, mesh):
+    """The dense item gramian ``AᵀA`` (float32) row-sharded over ``mesh``.
+
+    Shard k owns rows ``[k·block, (k+1)·block)`` of S, ``block = ceil(items
+    / D)``, as a (block, items) tensor on its device. Each user chunk is
+    densified once per distinct device (:func:`_densified_chunks`), its
+    columns padded to ``D·block`` so the last block's slice runs into
+    zeros, and each shard accumulates ``S_k += D[:, rows_k]ᵀ D`` in full
+    float32: the flops divide by D, and no collective runs. Returns the
+    shards in shard order and ``block``; rows past ``items`` (in the last
+    shards) are zero. Logs the step "gramian".
+    """
+    users, items = user_items.shape
+    block = max(1, -(-items // mesh.size))
+    devices = mesh.distinct()
+    with timed_step("gramian", devices, stage=_STAGE):
+        S = [torch.zeros((block, items), dtype=torch.float32, device=d) for d in mesh.devices]
+        for blocks in zip(*(_densified_chunks(user_items, d, mesh.size * block)
+                            for d in devices)):
+            dense = dict(zip(devices, blocks))
+            for k, d in enumerate(mesh.devices):
+                with full_f32_matmul():
+                    S[k].addmm_(dense[d][:, k * block:(k + 1) * block].T, dense[d][:, :items])
+    return S, block
 
 
 def _dense_topk_to_coo(S, K, keep="positive"):
@@ -280,14 +340,28 @@ def _dense_topk_to_coo(S, K, keep="positive"):
     k = min(K, items)
     if k <= 0:
         return sp.coo_matrix((items, items), dtype=np.float64)
-    row_block = max(8, min(items, (1 << 25) // max(items, 1)))
-    vals = torch.empty((items, k), dtype=S.dtype, device=S.device)
-    cols = torch.empty((items, k), dtype=torch.int64, device=S.device)
-    for start in range(0, items, row_block):
-        stop = min(start + row_block, items)
+    return _topk_coo(*_topk_rows(S, k), items, keep)
+
+
+def _topk_rows(S, k):
+    """``torch.topk`` of every row of the (rows, items) device matrix ``S``,
+    over row blocks: (values, columns) on S's device."""
+    n_rows, items = S.shape
+    row_block = max(8, min(n_rows, (1 << 25) // max(items, 1)))
+    vals = torch.empty((n_rows, k), dtype=S.dtype, device=S.device)
+    cols = torch.empty((n_rows, k), dtype=torch.int64, device=S.device)
+    for start in range(0, n_rows, row_block):
+        stop = min(start + row_block, n_rows)
         vals[start:stop], cols[start:stop] = torch.topk(S[start:stop], k, dim=1)
-    vals = vals.cpu().numpy().astype(np.float64)
-    cols = cols.cpu().numpy()
+    return vals, cols
+
+
+def _topk_coo(vals, cols, items, keep):
+    """The (items, items) COO of per-row top-k values and columns (device
+    tensors with at least ``items`` rows; later rows are dropped), the
+    values as float64, only those ``keep`` selects."""
+    vals = vals.cpu().numpy()[:items].astype(np.float64)
+    cols = cols.cpu().numpy()[:items]
     r, c = np.nonzero(vals > 0 if keep == "positive" else vals != 0)
     return sp.coo_matrix(
         (vals[r, c], (r.astype(np.int32), cols[r, c].astype(np.int32))),
@@ -295,10 +369,28 @@ def _dense_topk_to_coo(S, K, keep="positive"):
     )
 
 
-def _all_pairs_knn_device(user_items, K, device):
+def _dense_topk_to_coo_meshed(S, items, K, mesh, keep="positive"):
+    """K-sparsifies a row-sharded matrix (``S[k]`` shard k's (block, items)
+    rows on its device, :func:`_dense_gramian_meshed`) into COO triples:
+    ``torch.topk`` on each shard's rows, the results gathered in shard order
+    on the host, the padding rows (past ``items``) dropped, ``keep`` as in
+    :func:`_dense_topk_to_coo`."""
+    k = min(K, items)
+    if k <= 0:
+        return sp.coo_matrix((items, items), dtype=np.float64)
+    parts = [_topk_rows(Sk, k) for Sk in S]
+    return _topk_coo(torch.cat([v.cpu() for v, _ in parts]),
+                     torch.cat([c.cpu() for _, c in parts]), items, keep)
+
+
+def _all_pairs_knn_device(user_items, K, device, mesh=None):
     """Exact AᵀA top-K on ``device``: the dense gramian over densified
     chunks (:func:`_dense_gramian_device`), then :func:`_dense_topk_to_coo`
-    (logged as the step "top-k")."""
+    (logged as the step "top-k"); over ``mesh``, their row-sharded twins."""
+    if mesh is not None:
+        S, _ = _dense_gramian_meshed(user_items, mesh)
+        with timed_step("top-k", mesh.distinct(), stage=_STAGE):
+            return _dense_topk_to_coo_meshed(S, user_items.shape[1], K, mesh, keep="positive")
     S = _dense_gramian_device(user_items, device)
     with timed_step("top-k", device, stage=_STAGE):
         return _dense_topk_to_coo(S, K, keep="positive")
@@ -389,8 +481,13 @@ class ItemItemRecommender(RecommenderBase):
         Neighbours stored per item in the similarity matrix
     num_threads : int, optional
         Threads for the native host similarity build (0 = all cores)
-    mesh : None
-        Multi-device fits are not ported; anything but None raises.
+    mesh : parallel.Mesh or int, optional
+        Run the device similarity build over a mesh (:func:`all_pairs_knn`):
+        the gramian's rows shard over it, and the device route's item cap
+        rises by √D. Only fits that take the device route use it; serving
+        stays on ``device``. An int n is ``parallel.create_mesh(n,
+        device)``, resolved when the fit runs (n cards on CUDA, raising
+        where fewer are visible; n virtual shards on the CPU).
     device : str or torch.device, optional
         Where the device similarity build and ``recommend``'s scoring run
         (default ``"cuda"``; naming CUDA without a card raises).
@@ -402,8 +499,7 @@ class ItemItemRecommender(RecommenderBase):
     """
 
     def __init__(self, K=20, num_threads=0, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("mesh= (multi-device fits) is not ported yet")
+        check_mesh_arg(mesh)
         self.device = resolve_device(device)
         self._similarity = None
         self._similarity_dev = None
@@ -441,8 +537,14 @@ class ItemItemRecommender(RecommenderBase):
         weighted = sp.csr_matrix(self._weighted(counts))
         self.similarity = all_pairs_knn(
             weighted, self.K, show_progress=show_progress,
-            num_threads=self.num_threads, device=self.device,
+            num_threads=self.num_threads, mesh=self._fit_mesh(), device=self.device,
         ).tocsr()
+
+    def _fit_mesh(self):
+        """The model's ``mesh`` resolved on its device (a virtual mesh where
+        the model was pickled with one), or None."""
+        return resolve_mesh(getattr(self, "mesh", None), self.device,
+                            getattr(self, "_mesh_virtual", False))
 
     # -- serving ----------------------------------------------------------------
 
@@ -615,10 +717,12 @@ class ItemItemRecommender(RecommenderBase):
     # -- persistence --------------------------------------------------------
 
     def __getstate__(self):
-        # the device copy stays out of pickles; it refills on use
+        # the device copy stays out of pickles; it refills on use. A Mesh is
+        # stored as its size (``parallel.mesh.mesh_state``), as the factor
+        # models store theirs
         state = self.__dict__.copy()
         state["_similarity_dev"] = None
-        return state
+        return mesh_state(state)
 
     def _save_args(self):
         """Hyperparameters persisted alongside the similarity matrix (the JAX

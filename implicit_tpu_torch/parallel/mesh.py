@@ -91,6 +91,40 @@ def virtual_mesh(n_shards, device):
     return Mesh([resolve_device(device)] * n)
 
 
+def check_mesh_arg(mesh):
+    """Raises ``ValueError`` unless ``mesh`` is what a model's ``mesh=``
+    takes: None, a :class:`Mesh`, or an int >= 1 (resolved when it is used,
+    :func:`resolve_mesh`)."""
+    if not (mesh is None or isinstance(mesh, Mesh)
+            or (isinstance(mesh, (int, np.integer)) and not isinstance(mesh, bool)
+                and mesh >= 1)):
+        raise ValueError(f"mesh must be None, a parallel.Mesh or an int >= 1, got {mesh!r}")
+
+
+def resolve_mesh(mesh, device, virtual=False):
+    """A ``mesh=`` argument as a :class:`Mesh`, or None: a Mesh as it is; an
+    int n as ``create_mesh(n, device)`` (n cards on CUDA, raising where
+    fewer are visible; n virtual shards on the CPU), or as
+    ``virtual_mesh(n, device)`` with ``virtual`` (a model pickled with a
+    virtual mesh)."""
+    check_mesh_arg(mesh)
+    if mesh is None or isinstance(mesh, Mesh):
+        return mesh
+    return (virtual_mesh if virtual else create_mesh)(int(mesh), device)
+
+
+def mesh_state(state):
+    """A model's pickled ``state`` with its ``mesh`` stored as the mesh's
+    size (and ``_mesh_virtual``), rebuilt on the model's device where it is
+    next resolved: a mesh over several cards then raises where fewer are
+    visible, a virtual mesh stays virtual."""
+    mesh = state.get("mesh")
+    if isinstance(mesh, Mesh):
+        state["mesh"] = mesh.size
+        state["_mesh_virtual"] = mesh.virtual
+    return state
+
+
 def replicated(mesh, x):
     """``x`` (a tensor or an array) on every device of the mesh: one tensor
     per shard, shards of one device sharing theirs."""

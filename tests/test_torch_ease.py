@@ -178,8 +178,16 @@ def test_quality_clustered_within_jax():
     assert p10 > 0.5 and abs(p10 - want) <= 0.005, (p10, want)
 
 
-def test_unported_arguments_raise():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ease.EASERecommender(mesh=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ease.ease_weights(csr_matrix(_binary(10, 5, 0.5, seed=0)), mesh=2, device="cpu")
+def test_unported_arguments_raise(monkeypatch):
+    # one visible card: a 2-card mesh raises where it is resolved, and
+    # nothing is fitted
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    X = csr_matrix(_binary(10, 5, 0.5, seed=0))
+    model = ease.EASERecommender(mesh=2, device="cuda")
+    with pytest.raises(ValueError, match="CUDA device"):
+        model.fit(X, show_progress=False)
+    assert model.similarity is None
+    with pytest.raises(ValueError, match="CUDA device"):
+        ease.ease_weights(X, mesh=2, device="cuda")

@@ -256,14 +256,18 @@ def test_dense_topk_to_coo_matches_jax(keep):
 @pytest.mark.parametrize("kwargs,error,match", [
     (dict(method="device"), ValueError, "method='host'"),
     (dict(method="remote"), ValueError, "method"),
-    (dict(mesh=2), NotImplementedError, "mesh"),
+    (dict(mesh=2, device="cuda"), ValueError, "CUDA device"),
 ], ids=["cap", "method", "mesh"])
-def test_all_pairs_knn_refuses(kwargs, error, match):
+def test_all_pairs_knn_refuses(kwargs, error, match, monkeypatch):
+    # one visible card: a 2-card mesh raises where it is resolved
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     wide = sparse.random(10, nn._DEVICE_KNN_MAX_ITEMS + 1, density=0.01,
                          random_state=np.random.RandomState(0), format="csr")
     wide.data[:] = 1.0
     with pytest.raises(error, match=match):
-        nn.all_pairs_knn(wide, 5, device="cpu", **kwargs)
+        nn.all_pairs_knn(wide, 5, **{"device": "cpu", **kwargs})
 
 
 def test_device_route_refuses_negative_weights():
@@ -420,8 +424,17 @@ def test_device_copy_follows_the_similarity():
 
 
 @pytest.mark.parametrize("name", MODELS)
-def test_unported_arguments_raise(name):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        getattr(nn, name)(mesh=2, device="cpu")
+def test_unported_arguments_raise(name, monkeypatch):
     with pytest.raises(ValueError):
         getattr(nn, name)(device="meta")
+    with pytest.raises(ValueError, match="mesh must be"):
+        getattr(nn, name)(mesh=0, device="cpu")
+    # one visible card: a 2-card mesh raises when the fit resolves it, and
+    # nothing is fitted
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    model = getattr(nn, name)(mesh=2, device="cuda")
+    with pytest.raises(ValueError, match="CUDA device"):
+        model.fit(_counts(), show_progress=False)
+    assert model.similarity is None

@@ -317,16 +317,24 @@ def test_unsupported_arguments_raise(kwargs, error, monkeypatch):
 
 
 @pytest.mark.parametrize("factory,kwargs,error", [
-    (BayesianPersonalizedRanking, dict(mesh=2), NotImplementedError),
+    (BayesianPersonalizedRanking, dict(mesh=2, device="cuda"), ValueError),
     (BayesianPersonalizedRanking, dict(device="meta"), ValueError),
     (BayesianPersonalizedRanking, dict(epoch_mode="grouped_pool"), NotImplementedError),
-    (LogisticMatrixFactorization, dict(mesh=2), NotImplementedError),
+    (LogisticMatrixFactorization, dict(mesh=2, device="cuda"), ValueError),
     (LogisticMatrixFactorization, dict(device="meta"), ValueError),
     (LogisticMatrixFactorization, dict(ingest="remote"), ValueError),
 ], ids=["bpr-mesh", "bpr-device", "bpr-pool", "lmf-mesh", "lmf-device", "lmf-ingest"])
-def test_sgd_unsupported_arguments_raise(factory, kwargs, error):
-    with pytest.raises(error):
-        factory(**{"device": "cpu", **kwargs})
+def test_sgd_unsupported_arguments_raise(factory, kwargs, error, monkeypatch):
+    # one visible card: a 2-card mesh raises when the fit resolves it, and
+    # nothing is fitted, as ALS's case above
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    model = None
+    with pytest.raises(error, match="CUDA device" if "mesh" in kwargs else None):
+        model = factory(**{"device": "cpu", **kwargs})
+        model.fit(get_checkerboard(4), show_progress=False)
+    assert model is None or model.user_factors is None
 
 
 def test_accepted_parity_arguments():
@@ -419,6 +427,7 @@ def test_port_imports_without_jax():
         "implicit_tpu_torch.datasets.stdlib_corpus, implicit_tpu_torch.datasets.synthetic, "
         "implicit_tpu_torch.parallel, implicit_tpu_torch.parallel.mesh, "
         "implicit_tpu_torch.parallel.als_sharded, implicit_tpu_torch.parallel.topk_sharded, "
+        "implicit_tpu_torch.models.bpr, implicit_tpu_torch.models.lmf, "
         "chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'implicit_tpu')]\n"
         "assert not bad, bad\n"
