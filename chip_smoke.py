@@ -148,7 +148,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    meshed weights by phase 6's closed form (lam off by 10% rejected) and
    ``EASERecommender(K=100, mesh=)`` against phase 6's similarity, with its
    steps and peak device memory. Each step prints its wall (``grep "phase
-   10"``).
+   10"``);
+11. BPR's grouped pool modes (torch ops, no kernel of their own) at phase
+   5's shape and arguments (f=128, ``random_state=1``): one epoch of each
+   of ``pool_mode`` 2 and 1 fed draws made on the host at phase 5's
+   injected-draw shape, card against CPU at phase 5's BPR bar (1e-5 of
+   scale, counts exact), which must reject the result with one chunk left
+   out; ``epoch_mode="grouped_pool"`` and ``"grouped_pool_ids"``, 4 epochs
+   each, the fourth under ``torch.profiler`` (s/epoch, samples/s, busy
+   share, launches per epoch, set-up by step, beside phase 5's grouped and
+   sampled s/epoch); the pool mode 2 fit again through the module flag
+   ``BPR_GROUPED = 2``, which must give the same bits; ``recommend`` for
+   1024 users from each; clustered p@10 >= 0.85 for both
+   (``grep "phase 11"``).
 
 The second-to-last lines are one JSON object of per-kernel results and the
 card's name and power limit; the last line is
@@ -1070,12 +1082,13 @@ class EpochProfile:
             self.wall = secs
         self.overhead += time.perf_counter() - t0
 
-    def report(self, tag, steady):
+    def report(self, tag, steady, phase=5):
         """Prints the five kernels with the most device time in the profiled
         epoch, the five aten ops with the most (their kernels included),
         and the device's busy share: kernel time over the profiled epoch's
         wall, and over ``steady``, the unprofiled s/epoch (the profiler's
-        own host time slows a launch-bound epoch)."""
+        own host time slows a launch-bound epoch). Returns the kernel
+        seconds, the launches and the busy share of the unprofiled epoch."""
         from torch.autograd import DeviceType
 
         def device_us(e, self_time):
@@ -1085,24 +1098,52 @@ class EpochProfile:
 
         events = self.prof.key_averages()
         kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-        kernel_s = sum(device_us(e, True) for e in kernels) / 1e6
-        top = sorted(kernels, key=lambda e: -device_us(e, True))[:5]
         ops = sorted((e for e in events if e.key.startswith("aten::")),
                      key=lambda e: -device_us(e, False))[:5]
-        say(5, f"profile {tag}: epoch wall {self.wall:.4f} s with the profiler on, "
-               f"{steady:.4f} s off; kernel time {kernel_s:.4f} s in {sum(e.count for e in kernels)} "
-               f"launches; busy share {kernel_s / self.wall:.3f} of the profiled epoch, "
-               f"{kernel_s / steady:.3f} of the unprofiled one")
-        say(5, f"profile {tag}: top kernels (device ms, launches): " + "; ".join(
-            f"{e.key[:90]} {device_us(e, True) / 1e3:.2f} ({e.count})" for e in top))
-        say(5, f"profile {tag}: top ops (device ms incl. their kernels, calls): " + "; ".join(
+        out = self._kernel_lines(tag, steady, phase, {
+            e.key: (device_us(e, True) * 1e3, e.count) for e in kernels})
+        say(phase, f"profile {tag}: top ops (device ms incl. their kernels, calls): " + "; ".join(
             f"{e.key} {device_us(e, False) / 1e3:.2f} ({e.count})" for e in ops))
+        return out
+
+    def report_kernels(self, tag, steady, phase):
+        """``report``'s kernel lines, summed straight from the profiler's raw
+        device events: ``key_averages`` first parses every host op into a
+        tree, about 30 s for a sampled BPR epoch's 400k events. Returns what
+        ``report`` returns."""
+        from torch.autograd import DeviceType
+
+        totals = {}
+        for e in self.prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                ns, n = totals.get(e.name(), (0, 0))
+                totals[e.name()] = (ns + e.end_ns() - e.start_ns(), n + 1)
+        return self._kernel_lines(tag, steady, phase, totals)
+
+    def _kernel_lines(self, tag, steady, phase, totals):
+        """Prints the profiled epoch's kernel time, launches and busy share
+        (kernel time over the profiled epoch's wall, and over ``steady``)
+        and the five kernels with the most device time, from ``totals``
+        {kernel name: (device ns, launches)}. Returns the kernel seconds,
+        the launches and the busy share of the unprofiled epoch."""
+        kernel_s = sum(ns for ns, _ in totals.values()) / 1e9
+        launches = sum(n for _, n in totals.values())
+        say(phase, f"profile {tag}: epoch wall {self.wall:.4f} s with the profiler on, "
+                   f"{steady:.4f} s off; kernel time {kernel_s:.4f} s in {launches} "
+                   f"launches; busy share {kernel_s / self.wall:.3f} of the profiled epoch, "
+                   f"{kernel_s / steady:.3f} of the unprofiled one")
+        say(phase, f"profile {tag}: top kernels (device ms, launches): " + "; ".join(
+            f"{name[:90]} {ns / 1e6:.2f} ({n})"
+            for name, (ns, n) in sorted(totals.items(), key=lambda kv: -kv[1][0])[:5]))
+        return dict(kernel_s=kernel_s, launches=launches, busy=kernel_s / steady)
 
 
-def bpr_fit(tag, plays, device, epoch_mode, iterations, profile_at=None):
+def bpr_fit(tag, plays, device, epoch_mode, iterations, profile_at=None, phase=5, factors=128):
     """BPR f=128 random_state=1 (``bench.py:651-663``) at the full shape:
     per-epoch seconds, correct and skipped; finite factors, the user bias
-    column exactly 1.0. ``profile_at`` profiles that epoch."""
+    column exactly 1.0. ``profile_at`` profiles that epoch; the steady
+    s/epoch is the mean of the epochs from the second to the profiled one
+    (or the third), exclusive."""
     from implicit_tpu_torch.bpr import BayesianPersonalizedRanking
 
     stats, prof = [], EpochProfile(profile_at) if profile_at is not None else None
@@ -1112,7 +1153,7 @@ def bpr_fit(tag, plays, device, epoch_mode, iterations, profile_at=None):
         if prof:
             prof(epoch, secs)
 
-    model = BayesianPersonalizedRanking(factors=128, iterations=iterations, random_state=1,
+    model = BayesianPersonalizedRanking(factors=factors, iterations=iterations, random_state=1,
                                         epoch_mode=epoch_mode, device=device)
     with port_debug_log() as split:
         t0 = time.perf_counter()
@@ -1123,14 +1164,15 @@ def bpr_fit(tag, plays, device, epoch_mode, iterations, profile_at=None):
     if not (model.user_factors[:, -1] == 1.0).all():
         raise AssertionError(f"bpr {tag}: the user bias column is not 1.0")
     secs = [s for s, _, _ in stats]
-    steady = float(np.mean(secs[1:3]))
-    say(5, f"bpr {tag}: s/epoch {[round(s, 4) for s in secs]}"
-           + (f" (epoch {profile_at + 1} profiled)" if prof else "")
-           + f"; epochs 2-3 mean {steady:.4f} s, {plays.nnz / steady:.0f} samples/s (nnz / "
-           f"s/epoch); correct/skipped per epoch {[(c, s) for _, c, s in stats]}; fit wall "
-           f"{wall:.3f} s, set-up {wall - sum(secs) - (prof.overhead if prof else 0):.3f} s "
-           f"(wall minus epochs and profiler start/stop): "
-           + ", ".join(f"{step} {t:.4f}" for step, t in split.steps))
+    last = min(3 if profile_at is None else profile_at, len(secs))
+    steady = float(np.mean(secs[1:last]))
+    say(phase, f"bpr {tag}: s/epoch {[round(s, 4) for s in secs]}"
+               + (f" (epoch {profile_at + 1} profiled)" if prof else "")
+               + f"; epochs 2-{last} mean {steady:.4f} s, {plays.nnz / steady:.0f} samples/s "
+               f"(nnz / s/epoch); correct/skipped per epoch {[(c, s) for _, c, s in stats]}; fit "
+               f"wall {wall:.3f} s, set-up {wall - sum(secs) - (prof.overhead if prof else 0):.3f} "
+               f"s (wall minus epochs and profiler start/stop): "
+               + ", ".join(f"{step} {t:.4f}" for step, t in split.steps))
     return model, steady, prof
 
 
@@ -1190,6 +1232,15 @@ def drop_chunk(classes, draws, ci):
     return cut, draws[:first] + draws[first + 1:]
 
 
+def injected_plays():
+    """The injected-draw checks' matrix: 3000 x 1500, 92,119 nnz, sorted."""
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+
+    plays = generate_synthetic(3000, 1500, 90_000, seed=5).astype(np.float32)
+    plays.sort_indices()
+    return plays
+
+
 def injected_inputs():
     """The injected-draw check's inputs, made on the host from seeds: the
     matrix, one grouped BPR epoch's starting factors and draws, and per LMF
@@ -1197,13 +1248,11 @@ def injected_inputs():
     draws of one class update over the largest user-side class."""
     from types import SimpleNamespace
 
-    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
     from implicit_tpu_torch.models import bpr as bpr_mod
     from implicit_tpu_torch.models import lmf as lmf_mod
     from implicit_tpu_torch.sparse import pack_pair_on_device
 
-    plays = generate_synthetic(3000, 1500, 90_000, seed=5).astype(np.float32)
-    plays.sort_indices()
+    plays = injected_plays()
     rng = np.random.default_rng(6)
     F = 32
     bpr = SimpleNamespace(F=F, lr=0.05, reg=0.01, start=[
@@ -1317,18 +1366,26 @@ def injected_draw_check(device):
                f"{wrong_err:.3e}, rejected")
 
 
+def clustered_set():
+    """``bench_quality``'s clustered set (``bench.py:404-437``): the matrix
+    and its 0.8 train / test split."""
+    from implicit_tpu_torch.datasets.synthetic import get_synthetic_clustered
+    from implicit_tpu_torch.evaluation import train_test_split
+
+    likes = get_synthetic_clustered(users=3000, items=600, groups=20, likes_per_user=24, seed=7)
+    return (likes, *train_test_split(likes, train_percentage=0.8, random_state=19))
+
+
 def sgd_quality(device, mesh=None, phase=5):
     """p@10 on ``bench_quality``'s clustered set (``bench.py:404-437``): BPR
     factors=63 iterations=200 and LMF factors=30, random_state=42, trained
     over ``mesh`` where one is given; each at least 0.85 (the JAX package
     recorded 0.8708 and 0.8639)."""
     from implicit_tpu_torch.bpr import BayesianPersonalizedRanking
-    from implicit_tpu_torch.datasets.synthetic import get_synthetic_clustered
-    from implicit_tpu_torch.evaluation import precision_at_k, train_test_split
+    from implicit_tpu_torch.evaluation import precision_at_k
     from implicit_tpu_torch.lmf import LogisticMatrixFactorization
 
-    likes = get_synthetic_clustered(users=3000, items=600, groups=20, likes_per_user=24, seed=7)
-    train, test = train_test_split(likes, train_percentage=0.8, random_state=19)
+    likes, train, test = clustered_set()
     out = {}
     for name, model in (
             ("bpr", BayesianPersonalizedRanking(factors=63, iterations=200, random_state=42,
@@ -1393,7 +1450,7 @@ def phase_sgd(device, plays):
 
     injected_draw_check(device)
     sgd_quality(device)
-    return dict(bpr_sampled=s_s, lmf=l_s)
+    return dict(bpr_grouped=g_s, bpr_sampled=s_s, lmf=l_s)
 
 
 # ---------------------------------------------------------------------------
@@ -3193,6 +3250,177 @@ def phase_mesh_fits(device, plays, sgd, item_item):
     say(10, f"phase 10 wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: BPR's grouped pool modes (models/bpr.py); torch ops, no kernel of
+# their own
+# ---------------------------------------------------------------------------
+
+# (tag, epoch_mode), each fitted at phase 5's arguments
+BPR_VARIANTS = (("grouped_pool", "grouped_pool"), ("grouped_pool_ids", "grouped_pool_ids"))
+# the variant fitted again through BPR_GROUPED (epoch_mode None), for the
+# same bits, and that flag's value
+BPR_REPEATED = ("grouped_pool", 2)
+
+
+@contextlib.contextmanager
+def bpr_flags(flags):
+    """``models.bpr``'s module flags set to ``flags`` inside the block and
+    restored after it, whatever happens."""
+    from implicit_tpu_torch.models import bpr as bpr_mod
+
+    saved = {k: getattr(bpr_mod, k) for k in flags}
+    try:
+        for k, v in flags.items():
+            setattr(bpr_mod, k, v)
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(bpr_mod, k, v)
+
+
+def variant_inputs(seed=12, F=32):
+    """The pool epochs' inputs at ``injected_plays``' shape, made on the
+    host from ``seed``: starting factors, a popularity arrangement (as the
+    fit draws it) and per chunk (C,) window offsets."""
+    from types import SimpleNamespace
+
+    from implicit_tpu_torch.models import bpr as bpr_mod
+
+    plays = injected_plays()
+    rng = np.random.default_rng(seed)
+    users, items = plays.shape
+    classes = bpr_mod.grouped_classes(plays, "cpu")
+    arr = bpr_mod.pool_arrangement(rng, plays, max(idx.shape[2] for _, idx, _, _ in classes))
+    return plays, SimpleNamespace(
+        F=F, lr=0.05, reg=0.01, arr=arr.astype(np.int64),
+        start=[rng.standard_normal(shape, dtype=np.float32) * 0.1
+               for shape in ((users, F), (items, F), (items,))],
+        offsets=[rng.integers(0, len(arr) - idx.shape[2], size=idx.shape[1])
+                 for _, idx, _, n in classes for _ in n],
+        drop=max(range(len(classes)), key=lambda c: classes[c][0].shape[0]))
+
+
+def variant_epoch(plays, inp, pool_mode, dev, drop=False):
+    """One grouped epoch in ``pool_mode`` on ``dev`` from ``variant_inputs``:
+    the (X, Y, yb) it leaves on the host and its (correct, skipped).
+    ``drop`` leaves out the largest class's first chunk."""
+    import torch
+
+    from implicit_tpu_torch.models import bpr as bpr_mod
+    from implicit_tpu_torch.ops import membership
+
+    pt = membership.build_pair_table(plays)
+    iters = int(np.ceil(np.log2(np.diff(plays.indptr).max()))) + 1
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    X, Y, yb = (t(a).clone() for a in inp.start)
+    flat = [t(a.astype(np.int64)) for a in (plays.indices, plays.indptr)] + [pt.to_device(dev)]
+    classes = bpr_mod.grouped_classes(plays, dev)
+    draws = [t(o) for o in inp.offsets]
+    if drop:
+        classes, draws = drop_chunk(classes, draws, inp.drop)
+    counts = bpr_mod._bpr_epoch_grouped(X, Y, yb, classes, *flat, draws, inp.lr, inp.reg, True,
+                                        iters, pt.bits, pool_mode=pool_mode,
+                                        arrangement=t(inp.arr))
+    return (X.cpu(), Y.cpu(), yb.cpu()), tuple(int(c) for c in counts)
+
+
+def variant_epoch_check(device):
+    """Step 1: a grouped epoch in each pool mode with draws made on the
+    host (``variant_inputs``), on the card and on the CPU, at phase 5's BPR
+    bar (1e-5 of each output's scale, the counts exact), which must reject
+    the CPU result with one chunk left out. Returns {"pool m": (err,
+    wrong_err)}."""
+    import torch
+
+    plays, inp = variant_inputs()
+    cpu = torch.device("cpu")
+    out = {}
+    for pool_mode in (2, 1):
+        tag = f"bpr pool {pool_mode} epoch, draws from the host"
+        got, got_counts = variant_epoch(plays, inp, pool_mode, device)
+        want, want_counts = variant_epoch(plays, inp, pool_mode, cpu)
+        wrong, _ = variant_epoch(plays, inp, pool_mode, cpu, drop=True)
+        if got_counts != want_counts:
+            raise AssertionError(f"{tag}: counts {got_counts} != {want_counts}")
+        err = out[f"pool {pool_mode}"] = scale_bar(tag, got, want, wrong, 1e-5)
+        say(11, f"{tag}, {plays.shape} nnz={plays.nnz} F={inp.F}: card vs CPU max err "
+                f"{err[0]:.3e} of scale (X, Y, yb each; bar 1e-5), (correct, skipped) "
+                f"{got_counts} on both; dropped chunk: {err[1]:.3e}, rejected")
+    return out
+
+
+def variant_fits(plays, device, sgd, factors=128, iterations=4):
+    """Step 2: each of ``BPR_VARIANTS`` fitted at phase 5's arguments for
+    ``iterations`` epochs, the last under ``torch.profiler`` (the steady
+    s/epoch is the mean of the second to the one before it); the
+    ``BPR_REPEATED`` variant fitted again through the module flag, which
+    must give the same bits; ``recommend`` for 1024 users from each. Prints
+    s/epoch, samples/s, busy share and launches per epoch beside phase 5's
+    grouped and sampled s/epoch (``sgd``). Returns {tag: steady s/epoch}."""
+    import torch
+
+    out = {}
+    for tag, epoch_mode in BPR_VARIANTS:
+        model, steady, prof = bpr_fit(tag, plays, device, epoch_mode, iterations,
+                                      iterations - 1, 11, factors)
+        if tag == BPR_REPEATED[0]:
+            with bpr_flags({"BPR_GROUPED": BPR_REPEATED[1]}):
+                again = bpr_fit(f"{tag}, the same seed again through BPR_GROUPED = "
+                                f"{BPR_REPEATED[1]}", plays, device, None, iterations, None,
+                                11, factors)[0]
+            if not (np.array_equal(model.user_factors, again.user_factors)
+                    and np.array_equal(model.item_factors, again.item_factors)):
+                raise AssertionError(f"bpr {tag}: two fits with the same random_state differ")
+            say(11, f"bpr {tag}: two fits with random_state=1 give the same bits")
+            del again
+        serve_checks(f"bpr f={factors} {tag}", model, plays, phase=11)
+        del model
+        profiled = prof.report_kernels(f"bpr {tag}", steady, 11)
+        out[tag] = steady
+        say(11, f"bpr {tag}: {steady:.4f} s/epoch, {plays.nnz / steady:.0f} samples/s; "
+                f"{steady / sgd['bpr_grouped']:.2f}x phase 5's grouped {sgd['bpr_grouped']:.4f}, "
+                f"{steady / sgd['bpr_sampled']:.2f}x its sampled {sgd['bpr_sampled']:.4f}; busy "
+                f"share {profiled['busy']:.3f}, {profiled['launches']} launches per epoch")
+        torch.cuda.empty_cache()
+    return out
+
+
+def variant_quality(device):
+    """Step 3: p@10 on ``clustered_set`` for each of ``BPR_VARIANTS``, BPR
+    factors=63 iterations=200 random_state=42 (``sgd_quality``'s), at least
+    0.85 each."""
+    from implicit_tpu_torch.bpr import BayesianPersonalizedRanking
+    from implicit_tpu_torch.evaluation import precision_at_k
+
+    likes, train, test = clustered_set()
+    out = {}
+    for tag, epoch_mode in BPR_VARIANTS:
+        model = BayesianPersonalizedRanking(factors=63, iterations=200, random_state=42,
+                                            epoch_mode=epoch_mode, device=device)
+        t0 = time.perf_counter()
+        model.fit(train, show_progress=False)
+        out[tag] = float(precision_at_k(model, train, test, K=10, show_progress=False))
+        say(11, f"clustered set {likes.shape}: bpr {tag} p@10 = {out[tag]:.4f} (gate >= 0.85), "
+                f"fit {time.perf_counter() - t0:.2f} s")
+    low = {k: v for k, v in out.items() if not v >= 0.85}
+    if low:
+        raise AssertionError(f"clustered p@10 under 0.85: {low}")
+    return out
+
+
+def phase_bpr_variants(device, plays, sgd):
+    """Phase 11: BPR's grouped pool modes at phase 5's shape and arguments.
+    ``sgd`` is phase 5's s/epoch."""
+    t_phase = time.perf_counter()
+    for name, fn, args in (("epochs, draws from the host", variant_epoch_check, (device,)),
+                           ("fits", variant_fits, (plays, device, sgd)),
+                           ("clustered quality", variant_quality, (device,))):
+        t0 = time.perf_counter()
+        fn(*args)
+        say(11, f"step {name}: {time.perf_counter() - t0:.1f} s")
+    say(11, f"phase 11 wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def kernel_rows(kernels, launches):
     """One row per kernel for the ``{"kernels": [...]}`` line: the main paths'
     launches (all variants), the largest error over every case, the float32
@@ -3300,6 +3528,7 @@ def main():
     for k, v in phase_mesh(device, plays, f32_factors, phase3).items():
         launches[k] = launches.get(k, 0) + v
     phase_mesh_fits(device, plays, sgd, item_item)
+    phase_bpr_variants(device, plays, sgd)
 
     print(json.dumps({"kernels": kernel_rows(kernels, launches)}))
     print(gpu_line())

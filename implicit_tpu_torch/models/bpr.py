@@ -4,25 +4,37 @@ The counterpart of ``implicit_tpu/models/bpr.py``: pairwise sigmoid ranking
 SGD over (user, liked, disliked) triples, with an extra trailing column on
 the factors holding the item bias (the matching user column is pinned to
 1.0). As in the JAX package, training is synchronous minibatch SGD with a
-deterministic schedule, in one of two epochs:
+deterministic schedule, in one of these epochs:
 
-- grouped (the default): every positive once per epoch, streamed out of
-  the padded chunks of a :class:`~implicit_tpu_torch.sparse.BucketedCSR`
-  (``_bpr_epoch_grouped``);
-- sampled: nnz uniform positives with replacement, in minibatches
-  (``_bpr_epoch``); over a mesh, each shard samples its slice of every
-  minibatch and every device's replica applies the gathered batch
+- grouped (``epoch_mode`` 1, the default): every positive once per epoch,
+  streamed out of the padded chunks of a
+  :class:`~implicit_tpu_torch.sparse.BucketedCSR` (``_bpr_epoch_grouped``);
+  each entry's negative drawn from the interaction multiset (the exact
+  popularity draw);
+- the grouped pool modes (``epoch_mode`` 2 and 3, the epoch's
+  ``pool_mode`` 2 and 1): each chunk row's negatives are a window of a
+  shuffled popularity snapshot (``arrangement``) at a drawn offset; mode 2
+  takes their factors and biases from the snapshot's epoch-start copy,
+  mode 3 only their biases (the factors stay live gathers);
+- sampled (``epoch_mode`` 0): nnz uniform positives with replacement, in
+  minibatches (``_bpr_epoch``); over a mesh, each shard samples its slice
+  of every minibatch and every device's replica applies the gathered batch
   (``_bpr_epoch_sharded``, always this epoch, as in the JAX package).
 
-Both draw each negative from the interaction multiset (the exact popularity
-draw) and skip negatives the user liked, checked against the cuckoo pair
-table of :mod:`~implicit_tpu_torch.ops.membership` or, where none fits, by
-bisection over the CSR row.
+All skip negatives the user liked, checked against the cuckoo pair table of
+:mod:`~implicit_tpu_torch.ops.membership` or, where none fits, by bisection
+over the CSR row.
 
 Draws: each step's index draws come from a draw function on the model's
-``torch.Generator`` (``_sample_draws``, ``_group_draws``), apart from the
-update, so the epochs can be fed any draws (the tests feed the JAX
-package's); ``_shard_sample_draws`` draws a meshed epoch's per shard.
+``torch.Generator`` (``_sample_draws``, ``_group_draws``, ``_pool_draws``),
+apart from the update, so the epochs can be fed any draws (the tests feed
+the JAX package's); ``_shard_sample_draws`` draws a meshed epoch's per
+shard.
+
+``BPR_GROUPED``, the mode ``epoch_mode=None`` takes, is read at fit time,
+as the JAX package reads its own. The JAX package's ``BPR_FUSED_BUFFER``
+and ``BPR_SORT_SAMPLES`` (a stacked-table and a sorted-sample sampled
+epoch, measurement points it keeps off) are not ported (ROADMAP C29).
 
 Accumulation: rows that collide within a step sum their updates in an
 order fixed by the inputs (``_scatter_add``), so two fits with the same
@@ -54,10 +66,17 @@ log = logging.getLogger("implicit_tpu_torch")
 # sample (more collisions on hot rows within a batch)
 _MAX_BATCH = 65536
 
-# epoch_mode values: 0 sampled, 1 grouped; the JAX package's pool modes
-# (2, 3) are measured dead ends there and are not ported (ROADMAP A6)
-_EPOCH_MODES = {None: 1, "sampled": 0, "grouped": 1, 0: 0, 1: 1}
-_UNPORTED_MODES = ("grouped_pool", "grouped_pool_ids", 2, 3)
+# the epoch mode of epoch_mode=None: 0 sampled, 1 grouped, 2 grouped with
+# pooled negative ids, factors and biases, 3 grouped with pooled ids and
+# biases and live factors
+BPR_GROUPED = 1
+
+_EPOCH_MODES = {"sampled": 0, "grouped": 1, "grouped_pool": 2, "grouped_pool_ids": 3,
+                0: 0, 1: 1, 2: 2, 3: 3}
+# each grouped epoch mode's pool_mode in _bpr_epoch_grouped
+_POOL_MODES = {1: 0, 2: 2, 3: 1}
+# the largest popularity snapshot the pool modes draw windows from
+_MAX_POOL = 1 << 21
 
 
 def _scatter_add(table, idx, values):
@@ -125,6 +144,25 @@ def _group_draws(gen, classes, n_samples):
     for rows, idx, _, _ in classes:
         for _ in range(rows.shape[0]):
             yield torch.randint(0, n_samples, idx.shape[1:], generator=gen, device=gen.device)
+
+
+def _pool_draws(gen, classes, n_arrangement):
+    """The grouped pool modes' draws: per chunk, in class and chunk order, a
+    (C,) tensor of window offsets, uniform in [0, n_arrangement - L) (row
+    c's negatives are ``arrangement[off[c]:off[c] + L]``)."""
+    for rows, idx, _, _ in classes:
+        C, L = idx.shape[1:]
+        for _ in range(rows.shape[0]):
+            yield torch.randint(0, n_arrangement - L, (C,), generator=gen, device=gen.device)
+
+
+def pool_arrangement(rs, user_items, max_l):
+    """The pool modes' popularity snapshot, drawn as the JAX package draws
+    it: a permutation of the interaction column array on numpy's ``rs``,
+    its first ``_MAX_POOL`` entries, wrap-padded by ``max_l`` (the widest
+    chunk) so a window can start anywhere in the snapshot."""
+    pool = rs.permutation(user_items.indices.astype(np.int32))[:min(user_items.nnz, _MAX_POOL)]
+    return np.concatenate([pool, np.resize(pool, max_l)])
 
 
 def _bpr_epoch(X, Y, yb, userids, itemids, indptr, table, draws, lr, reg,
@@ -225,33 +263,48 @@ def _bpr_epoch_sharded(replicas, flats, draws, lr, reg, verify_neg, bisect_iters
 
 
 def _bpr_epoch_grouped(X, Y, yb, classes, itemids, indptr, table, draws, lr, reg,
-                       verify_neg, bisect_iters, bits):
+                       verify_neg, bisect_iters, bits, pool_mode=0, arrangement=None):
     """One user-grouped BPR epoch over bucketed CSR chunks, in place.
 
     ``classes`` holds each class's (rows (n, C), indices (n, C, L), data (n,
     C, L), n_valid) with binarized data (padding is data == 0) and sentinel
-    rows (id n_users) at the end of a chunk; ``draws`` yields each chunk's
-    (C, L) negative positions into ``itemids``. Per chunk, as the JAX
-    package's ``pool_mode=0``: the C user rows gathered once, one negative
-    per entry, gradients at chunk-start values; the user row shrinks by the
-    exact ``(1 - lr reg) ** n_kept`` (the first-order ``1 - n lr reg`` goes
+    rows (id n_users) at the end of a chunk. Per chunk, as the JAX
+    package's epoch: the C user rows gathered once, one negative per entry,
+    gradients at chunk-start values; the user row shrinks by the exact
+    ``(1 - lr reg) ** n_kept`` (the first-order ``1 - n lr reg`` goes
     negative past 1/(lr reg) entries) and is set back once; item rows take
     the first-order update, colliding rows summed. A sentinel row reads the
     last user's row and writes nothing. Returns (correct, skipped) as device
     scalars.
+
+    ``pool_mode`` 0: ``draws`` yields each chunk's (C, L) negative positions
+    into ``itemids``. 1 and 2: it yields each chunk's (C,) window offsets
+    into ``arrangement`` (:func:`pool_arrangement`, :func:`_pool_draws`),
+    whose windows are the rows' negatives; their biases come from the
+    epoch-start snapshot ``yb[arrangement]``, and in mode 2 their factors
+    too from ``Y[arrangement]`` (in mode 1 they stay live gathers). The
+    updates land on the live Y and yb at the negatives' ids.
     """
     n_users, F = X.shape
     correct = torch.zeros((), dtype=torch.int64, device=X.device)
     skipped = torch.zeros((), dtype=torch.int64, device=X.device)
     gamma = float(max(np.float32(1.0) - np.float32(lr) * np.float32(reg), np.float32(0.0)))
+    if pool_mode:
+        ybpop = yb[arrangement]
+        Ypop = Y[arrangement] if pool_mode == 2 else None
     draws = iter(draws)
     for rows, idx, dat, n_valid in classes:
         for crows, cidx, cdat, nv in zip(rows, idx, dat, n_valid):
             r = next(draws)
             x = X[crows.clamp(max=n_users - 1)]
             Yu, bl = Y[cidx], yb[cidx]
-            negids = itemids[r]
-            Yn, bn = Y[negids], yb[negids]
+            if pool_mode:
+                window = r[:, None] + torch.arange(cidx.shape[1], device=r.device)
+                negids, bn = arrangement[window], ybpop[window]
+                Yn = Ypop[window] if pool_mode == 2 else Y[negids]
+            else:
+                negids = itemids[r]
+                Yn, bn = Y[negids], yb[negids]
             skip = _verify_skip(indptr, itemids, table, crows[:, None].expand_as(cidx), negids,
                                 verify_neg, bisect_iters, bits)
             diff = Yu - Yn
@@ -325,13 +378,17 @@ class BayesianPersonalizedRanking(MatrixFactorizationBase):
         package's. An int n is ``parallel.create_mesh(n, device)``: n cards
         on CUDA (raising where fewer are visible), n virtual shards on the
         CPU. None (default) trains on ``device``.
-    epoch_mode : {None, "grouped", "sampled", 0, 1}, optional
-        How an epoch visits the training pairs. ``"grouped"`` (1, and the
-        default None) streams every positive exactly once per epoch out of
-        bucketed CSR chunks; ``"sampled"`` (0) draws nnz uniform positives
-        with replacement (the reference's schedule). The JAX package's
-        ``"grouped_pool"`` and ``"grouped_pool_ids"`` (2, 3) are not ported
-        and raise NotImplementedError.
+    epoch_mode : {None, "sampled", "grouped", "grouped_pool", "grouped_pool_ids", 0, 1, 2, 3}
+        How an epoch visits the training pairs. ``"grouped"`` (1) streams
+        every positive exactly once per epoch out of bucketed CSR chunks,
+        each entry's negative drawn from the interaction multiset;
+        ``"sampled"`` (0) draws nnz uniform positives with replacement (the
+        reference's schedule). ``"grouped_pool"`` (2) is grouped with each
+        row's negatives, their factors and their biases taken from a window
+        of a shuffled epoch-start popularity snapshot; ``"grouped_pool_ids"``
+        (3) takes only the ids and biases from the window and gathers the
+        live factors. None (default) follows the module's ``BPR_GROUPED``
+        (1). The mesh path always trains ``"sampled"``.
     device : str or torch.device, optional
         Where the epochs run and the serving tables live; default "cuda".
         Asking for CUDA where there is none raises.
@@ -365,16 +422,15 @@ class BayesianPersonalizedRanking(MatrixFactorizationBase):
         self._resolve_epoch_mode()
 
     def _resolve_epoch_mode(self):
-        """0 (sampled) or 1 (grouped) for ``epoch_mode``."""
-        if self.epoch_mode in _UNPORTED_MODES:
-            raise NotImplementedError(
-                f"epoch_mode={self.epoch_mode!r} (a pool mode) is not ported: it measured "
-                "slower than 'grouped' in the JAX package (ROADMAP A6)")
+        """0 (sampled), 1 (grouped), 2 (grouped_pool) or 3
+        (grouped_pool_ids) for ``epoch_mode``; None is ``BPR_GROUPED``."""
+        if self.epoch_mode is None:
+            return BPR_GROUPED
         try:
             return _EPOCH_MODES[self.epoch_mode]
         except (KeyError, TypeError):
-            raise ValueError(f"epoch_mode must be None, 'sampled' or 'grouped', "
-                             f"got {self.epoch_mode!r}") from None
+            raise ValueError(f"epoch_mode must be 'sampled', 'grouped', 'grouped_pool' or "
+                             f"'grouped_pool_ids', got {self.epoch_mode!r}") from None
 
     def fit(self, user_items, show_progress=True, callback=None):
         """Factorizes the user_items matrix (values treated as binary likes).
@@ -384,7 +440,9 @@ class BayesianPersonalizedRanking(MatrixFactorizationBase):
         """
         rs = check_random_state(self.random_state)
         mesh = self._serving_mesh()  # resolved (and refused) before anything is fitted
-        grouped = self._resolve_epoch_mode() == 1 and mesh is None
+        epoch_mode = self._resolve_epoch_mode()  # BPR_GROUPED read now, as in JAX
+        grouped = bool(epoch_mode) and mesh is None
+        pool_mode = _POOL_MODES[epoch_mode] if grouped else 0
         dev = self.device if mesh is None else mesh.devices[0]
         devices = [dev] if mesh is None else mesh.distinct()
 
@@ -454,6 +512,14 @@ class BayesianPersonalizedRanking(MatrixFactorizationBase):
         if grouped:
             with timed_step("chunks", dev):
                 classes = grouped_classes(user_items, dev)
+        arrangement = None
+        if pool_mode:
+            # drawn where the JAX package draws it: after the starting
+            # factors, before the epochs' seed
+            with timed_step("arrangement", dev):
+                arrangement = torch.as_tensor(pool_arrangement(
+                    rs, user_items, max(idx.shape[2] for _, idx, _, _ in classes)
+                ).astype(np.int64), device=dev)
 
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(rs.integers(0, 2**31)))
@@ -467,9 +533,11 @@ class BayesianPersonalizedRanking(MatrixFactorizationBase):
             for epoch in range(self.iterations):
                 s = time.time()
                 if grouped:
+                    draws = (_pool_draws(gen, classes, arrangement.shape[0]) if pool_mode
+                             else _group_draws(gen, classes, samples))
                     correct, skipped = _bpr_epoch_grouped(
-                        X, Y, yb, classes, itemids, indptr, table,
-                        _group_draws(gen, classes, samples), lr, reg, **verify)
+                        X, Y, yb, classes, itemids, indptr, table, draws, lr, reg,
+                        pool_mode=pool_mode, arrangement=arrangement, **verify)
                     total = samples  # every positive visited exactly once
                 elif mesh is not None:
                     # each shard draws ceil(batch / D) samples per step

@@ -641,11 +641,12 @@ def _sgd_plays(seed=5):
 
 
 @pytest.mark.parametrize("verifier", ["cuckoo", "bisection"])
-@pytest.mark.parametrize("epoch", ["grouped", "sampled"])
+@pytest.mark.parametrize("epoch", ["grouped", "sampled", "pool2", "pool1"])
 def test_bpr_epoch_with_injected_draws_on_cuda_matches_cpu(cuda, epoch, verifier):
     """One BPR epoch with draws made on the host, on the card and on the CPU:
     within 1e-5 of each output's scale (the CPU tests' bar against the JAX
-    package: float32 sums in another order), the counts exact."""
+    package: float32 sums in another order), the counts exact. The grouped
+    epoch also in its pool modes."""
     from implicit_tpu_torch.models import bpr
     from implicit_tpu_torch.ops import membership
 
@@ -658,9 +659,13 @@ def test_bpr_epoch_with_injected_draws_on_cuda_matches_cpu(cuda, epoch, verifier
     pt = membership.build_pair_table(plays)
     iters = int(np.ceil(np.log2(np.diff(plays.indptr).max()))) + 1
     userids = np.repeat(np.arange(users), np.diff(plays.indptr))
+    shapes = [idx.shape[1:] for _, idx, _, n in bpr.grouped_classes(plays, "cpu") for _ in n]
+    arr = None
     if epoch == "grouped":
-        shapes = [idx.shape[1:] for _, idx, _, n in bpr.grouped_classes(plays, "cpu") for _ in n]
         draws = [rng.integers(0, plays.nnz, size=s) for s in shapes]
+    elif epoch.startswith("pool"):
+        arr = bpr.pool_arrangement(rng, plays, max(L for _, L in shapes)).astype(np.int64)
+        draws = [rng.integers(0, len(arr) - L, size=C) for C, L in shapes]
     else:
         draws = [rng.integers(0, plays.nnz, size=(2, 4096)) for _ in range(8)]
     out = {}
@@ -669,10 +674,12 @@ def test_bpr_epoch_with_injected_draws_on_cuda_matches_cpu(cuda, epoch, verifier
         X, Y, yb = (t(a).clone() for a in start)
         flat = (t(plays.indices.astype(np.int64)), t(plays.indptr.astype(np.int64)))
         table, bits = (pt.to_device(dev), pt.bits) if verifier == "cuckoo" else (None, None)
-        if epoch == "grouped":
+        if epoch == "grouped" or epoch.startswith("pool"):
+            pool_mode = int(epoch[-1]) if epoch.startswith("pool") else 0
             counts = bpr._bpr_epoch_grouped(X, Y, yb, bpr.grouped_classes(plays, dev), *flat,
                                             table, [t(d) for d in draws], lr, reg, True, iters,
-                                            bits)
+                                            bits, pool_mode=pool_mode,
+                                            arrangement=None if arr is None else t(arr))
         else:
             counts = bpr._bpr_epoch(X, Y, yb, t(userids), *flat, table,
                                     [(t(d[0]), t(d[1])) for d in draws], lr, reg, True, iters,
@@ -724,7 +731,8 @@ def test_lmf_class_update_with_injected_draws_on_cuda_matches_cpu(cuda, route):
         assert np.abs(got - want).max() <= 2e-3 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("family", ["bpr-grouped", "bpr-sampled", "lmf"])
+@pytest.mark.parametrize("family", ["bpr-grouped", "bpr-sampled", "bpr-grouped_pool",
+                                    "bpr-grouped_pool_ids", "lmf"])
 def test_sgd_fits_repeat_bit_for_bit_on_cuda(cuda, family):
     """Two fits with the same random_state give the same bits on the card
     (BPR accumulates colliding rows with index_put_(accumulate=True), which

@@ -319,11 +319,10 @@ def test_unsupported_arguments_raise(kwargs, error, monkeypatch):
 @pytest.mark.parametrize("factory,kwargs,error", [
     (BayesianPersonalizedRanking, dict(mesh=2, device="cuda"), ValueError),
     (BayesianPersonalizedRanking, dict(device="meta"), ValueError),
-    (BayesianPersonalizedRanking, dict(epoch_mode="grouped_pool"), NotImplementedError),
     (LogisticMatrixFactorization, dict(mesh=2, device="cuda"), ValueError),
     (LogisticMatrixFactorization, dict(device="meta"), ValueError),
     (LogisticMatrixFactorization, dict(ingest="remote"), ValueError),
-], ids=["bpr-mesh", "bpr-device", "bpr-pool", "lmf-mesh", "lmf-device", "lmf-ingest"])
+], ids=["bpr-mesh", "bpr-device", "lmf-mesh", "lmf-device", "lmf-ingest"])
 def test_sgd_unsupported_arguments_raise(factory, kwargs, error, monkeypatch):
     # one visible card: a 2-card mesh raises when the fit resolves it, and
     # nothing is fitted, as ALS's case above
