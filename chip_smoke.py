@@ -26,10 +26,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    to the plain version than the plain version run in TF32.
    ``weighted_matvec`` also runs at F=320 and at the wide fits' own short
    and long classes and head class (f=512 bf16 and int8, f=320 f32), each
-   case twice for the same bits; ``cg_update`` (the dense term and masked
-   update of the wide fits' CG) at both wide fits' short class, the residual
-   pass and a CG step, twice for the same bits, against a wrong reference
-   whose dense term drops YtY_reg's last row. Times are means over a host
+   case twice for the same bits; ``cg_update`` (the dense term, on wgmma in
+   3xTF32, and masked update of the wide fits' CG) at both wide fits' short
+   class, the residual pass and a CG step, twice for the same bits, against
+   a wrong reference whose dense term drops YtY_reg's last row, with
+   cuBLAS's float32 p YtY_reg alone beside it (``dense_product_library_ms``).
+   Times are means over a host
    loop of launches (``cuda_ms``), as a caller sees them; the kernels whose
    launches are short (``weighted_matvec``, ``cg_update``) also give the
    device time of the same launches replayed from a CUDA graph
@@ -528,7 +530,9 @@ def update_case(tag, shape, device, tol):
     bits and against a wrong reference (the dense term without YtY_reg's
     last row); the step must also land 10x closer to the plain version
     than the plain version run in TF32 (``tf32_check``). Returns (results,
-    run, ref): run and ref time a step."""
+    run, ref, dense): run and ref time a step, dense its dense term alone as
+    one cuBLAS float32 product, p YtY_reg (the yardstick of the kernel's
+    product; no single PyTorch call computes the whole pass)."""
     import torch
 
     from implicit_tpu_torch.ops import cg_kernels
@@ -574,7 +578,12 @@ def update_case(tag, shape, device, tol):
     run = lambda: cg_kernels.cg_update(s, yty, bufs[2], *bufs, False)  # noqa: E731
     ref = lambda: cg_kernels.cg_update_plain(  # noqa: E731
         s, yty, plain_bufs[2], *plain_bufs, False)
-    return res, run, ref
+
+    def dense():
+        with cg_kernels.full_f32_matmul():
+            return plain_bufs[2] @ yty
+
+    return res, run, ref, dense
 
 
 def wide_class_shape(factors, L, compute_dtype="bfloat16"):
@@ -610,21 +619,24 @@ def phase_kernels(device):
                 tol = TOL[variant]
                 if name == "cg_update":
                     tag = f"cg_update C={C} F={F}"
-                    res, run, ref = update_case(tag, shape, device, tol)
+                    res, run, ref, dense = update_case(tag, shape, device, tol)
                     res["ms"] = cuda_ms(run, REPS)
                     res["graph_ms"] = cuda_graph_ms(run, REPS)
                     res["plain_ms"] = cuda_ms(ref, REPS)
+                    res["dense_product_library_ms"] = cuda_ms(dense, REPS)
                     res["bound_ms"], res["bound_by"], flops, nbytes = update_bound(C, F)
                     say(2, f"{tag}: max_abs_err={res['max_abs_err']:.3e} (bar rtol=atol={tol}: "
                            f"{res['bar']:.3e}; against the wrong reference: "
                            f"{res['wrong_ref_err']:.3e}; the TF32 plain version is "
                            f"{res['tf32_ref_err']:.3e} off; twice for the same bits) kernel "
                            f"{res['ms']:.4f} ms (graph {res['graph_ms']:.4f}), plain "
-                           f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms by "
+                           f"{res['plain_ms']:.4f} ms; dense_product_library_ms="
+                           f"{res['dense_product_library_ms']:.4f} (cuBLAS p YtY_reg alone); "
+                           f"bound {res['bound_ms']:.4f} ms by "
                            f"{res['bound_by']} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} "
                            f"MB), {100 * res['bound_ms'] / res['ms']:.1f}% of it")
                     results[name].setdefault(which, {})[variant] = res
-                    del run, ref
+                    del run, ref, dense
                     torch.cuda.empty_cache()
                     continue
                 Y, scales, idx, dat, x0, yty, steps = variant_case(
@@ -3457,7 +3469,7 @@ PTXAS_KERNELS = {
     "cg_full": {"cg_full_kernel": ("VPT", "W")},
     "weighted_matvec": {"wmv_narrow": ("CH", "G", "NCH"), "wmv_wide": ("CH",),
                         "wmv_sum_slices": ()},
-    "cg_update": {"cg_update_kernel": ()},
+    "cg_update": {"cg_update_kernel": ("NP",), "yty_split_kernel": ()},
 }
 
 
@@ -3515,6 +3527,9 @@ def main():
             f"{inst}: {regs} regs, {st}/{ld}" for inst, regs, st, ld in report))
         if not report or any(st or ld for _, _, st, ld in report):
             raise AssertionError(f"{lib}: no ptxas report, or an instantiation spills")
+        for line in _build.BUILD_LOGS[lib].splitlines():  # wgmma notes (C75xx): e.g. serialized
+            if "(C75" in line:
+                say(1, f"{lib} ptxas: {line.strip()}")
 
     kernels = phase_kernels(device)
     plays = lastfm_plays()

@@ -10,9 +10,10 @@ heads), for the three TPU kernels of ``implicit_tpu/ops/pallas_ops.py``:
   on it, for long rows.
 - :func:`weighted_matvec` (``csrc/weighted_matvec.cu``) replaces
   ``_weighted_matvec_kernel``: one pass of the CG's sparse term.
-- :func:`cg_update` (``csrc/cg_update.cu``): one pass's dense term and
-  masked CG update. With :func:`weighted_matvec` it makes
-  :func:`cg_solve_wide`, the solve of every class of a fit wider than
+- :func:`cg_update` (``csrc/cg_update.cu``): one pass's dense term (on
+  the tensor cores, 3xTF32) and masked CG update. With
+  :func:`weighted_matvec` it makes :func:`cg_solve_wide`, the solve of
+  every class of a fit wider than
   :data:`MAX_FACTORS` (``ops/als.py:_cg_class``), where it replaces the CG
   arithmetic of ``_cg_full_kernel`` and ``_gramian_cg_kernel``.
 
@@ -380,13 +381,11 @@ def weighted_matvec(Y, idx, w, bv, v, alpha, beta, scales=None):
     return out
 
 
-def cg_update_plain(s, YtY_reg, v, x, r, p, rs, act, first):
-    """Plain PyTorch version of :func:`cg_update` (same arguments, in place):
-    the steps of ``ops/als.py:_masked_cg``."""
+def _update_from(dense, s, v, x, r, p, rs, act, first):
+    """:func:`cg_update`'s steps from its dense term ``dense`` = v YtY_reg."""
     from .als import _cg_step
 
-    with full_f32_matmul():
-        t = s - v @ YtY_reg if first else s + p @ YtY_reg
+    t = s - dense if first else s + dense
     if first:
         x.copy_(v)
         r.copy_(t)
@@ -396,6 +395,32 @@ def cg_update_plain(s, YtY_reg, v, x, r, p, rs, act, first):
         return
     for buf, new in zip((x, r, p, rs, act), _cg_step(x, r, p, rs, act.bool(), t)):
         buf.copy_(new)
+
+
+def cg_update_plain(s, YtY_reg, v, x, r, p, rs, act, first):
+    """Plain PyTorch version of :func:`cg_update` (same arguments, in place):
+    the steps of ``ops/als.py:_masked_cg``."""
+    with full_f32_matmul():
+        _update_from(v @ YtY_reg, s, v, x, r, p, rs, act, first)
+
+
+def cg_update_split(s, YtY_reg, v, x, r, p, rs, act, first, scheme="3xtf32"):
+    """:func:`cg_update_plain` with the dense term v YtY_reg taken at the
+    operand precision of ``scheme``, for the tests: a model of the CUDA
+    kernel's precision on the CPU. "3xtf32" is the kernel's: hi hi + hi lo +
+    lo hi of TF32-rounded halves of v and of YtY_reg without its diagonal,
+    summed in float32, plus v times the diagonal in float32; "tf32" one pass
+    of the whole product, hi hi alone."""
+    if scheme not in ("3xtf32", "tf32"):
+        raise ValueError(f"scheme must be 3xtf32 or tf32, got {scheme!r}")
+    v, m = v.float(), YtY_reg.float()
+    with full_f32_matmul():
+        if scheme == "3xtf32":
+            d = torch.diagonal(m)
+            dense = sum(a @ b for a, b in _split_terms(v, m - torch.diag(d), scheme)) + v * d
+        else:
+            dense = sum(a @ b for a, b in _split_terms(v, m, scheme))
+        _update_from(dense, s, v, x, r, p, rs, act, first)
 
 
 def _check_update_args(YtY_reg, rs, act, **rows):
@@ -418,6 +443,19 @@ def _check_update_args(YtY_reg, rs, act, **rows):
     return C, F
 
 
+def _update_scratch(C, F):
+    """float32 values of ``cg_update``'s scratch: YtY_reg's split halves,
+    laid out for its ring, and its diagonal (``update_layout`` in
+    ``csrc/cg_update.cu``, computed the same way), and past F = 512 the
+    (C, F) product; never under C F, so that a build of the kernel that
+    keeps its product there fits."""
+    passes = -(-F // 256)  # of 2 np columns each
+    np_ = next((n for n in (32, 64, 80, 128) if 2 * n * passes >= F), 128)
+    kp = -(-F // 16) * 16  # k in chunks of 16
+    split = 2 * passes * kp * 2 * np_ + passes * 2 * np_  # hi and lo halves, diagonal
+    return max(C * F, split + (C * F if passes > 2 else 0))
+
+
 def cg_update(s, YtY_reg, v, x, r, p, rs, act, first):
     """One CG pass's dense term and masked update over a chunk's rows, in
     place. ``s`` (C, F) is the pass's sparse term from :func:`weighted_matvec`.
@@ -428,15 +466,17 @@ def cg_update(s, YtY_reg, v, x, r, p, rs, act, first):
     as ``ops/als.py:_masked_cg`` updates them. ``s`` is not written.
     float32 tensors but ``act`` (C,) int32; ``rs`` (C,).
 
-    CUDA tensors launch ``csrc/cg_update.cu``, with a (C, F) float32
-    scratch for the product allocated here; CPU tensors take the plain
-    version.
+    CUDA tensors launch ``csrc/cg_update.cu`` (YtY_reg split for the
+    tensor cores, then the product and the update), with a float32 scratch
+    of :func:`_update_scratch` values allocated here; CPU tensors take the
+    plain version.
     """
     if s.device.type == "cpu":
         return cg_update_plain(s, YtY_reg, v, x, r, p, rs, act, first)
     C, F = _check_update_args(YtY_reg, rs, act, v=v, s=s, x=x, r=r, p=p)
+    scratch = torch.empty(_update_scratch(C, F), dtype=torch.float32, device=s.device)
     _run("cg_update", "cg_update", s.device,
-         (YtY_reg, v, s, torch.empty_like(s), x, r, p, rs, act, C, F, int(bool(first))))
+         (YtY_reg, v, s, scratch, x, r, p, rs, act, C, F, int(bool(first))))
 
 
 def cg_solve_wide(Y, idx, dat, x0, YtY_reg, cg_steps=3, scales=None):

@@ -71,7 +71,8 @@ def case(kernel, which, shape, table, device):
     """(run, error, note) of one phase-2 case: ``run`` launches the kernel
     through its wrapper, ``error()`` is its max abs error against the plain
     version (cg_update: the phase-2 check of the build in use, which raises
-    on a miss)."""
+    on a miss; ``main`` prints the miss beside the build's times, so that a
+    copy that computes only part of the pass can still be timed)."""
     import torch
 
     import chip_smoke
@@ -81,8 +82,11 @@ def case(kernel, which, shape, table, device):
     if kernel == "cg_update":
         check = lambda: chip_smoke.update_case(  # noqa: E731
             f"cg_update {which}", shape, device, chip_smoke.TOL[table])
-        _, run, _ = check()
-        return run, lambda: check()[0]["max_abs_err"], ""
+        _, run, _, dense = check()
+        bound_ms, by, _, _ = chip_smoke.update_bound(shape[0], shape[2])
+        note = (f" (bound {bound_ms:.4f} ms by {by}; cuBLAS p YtY_reg alone "
+                f"{chip_smoke.cuda_graph_ms(dense, REPS):.4f} ms)")
+        return run, lambda: check()[0]["max_abs_err"], note
     Y, scales, idx, dat, x0, yty, _ = chip_smoke.variant_case(shape, table, device)
     if kernel != "weighted_matvec":
         solve, plain = {"cg_full": (cg_kernels.cg_solve_full, cg_kernels.cg_solve_full_plain),
@@ -144,11 +148,14 @@ def main():
             err = {}
             for tag in tags + tags[::-1]:
                 use(tag)
-                err[tag] = error()
+                try:
+                    err[tag] = f"{error():.1e}"
+                except AssertionError as e:  # a partial copy, timed for attribution
+                    err[tag] = f"check failed: {e}"
                 ms[tag].append((chip_smoke.cuda_ms(run, REPS), chip_smoke.cuda_graph_ms(run, REPS)))
             print(f"{which} {table} C, L, F = {shape}{note}: " + "; ".join(
                 f"{tag} host loop {ms[tag][0][0]:.4f}/{ms[tag][1][0]:.4f} ms, graph "
-                f"{ms[tag][0][1]:.4f}/{ms[tag][1][1]:.4f} ms (err {err[tag]:.1e})"
+                f"{ms[tag][0][1]:.4f}/{ms[tag][1][1]:.4f} ms (err {err[tag]})"
                 for tag in tags), flush=True)
             del run, error
             torch.cuda.empty_cache()

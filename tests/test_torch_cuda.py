@@ -311,22 +311,29 @@ def _update_pass(update, b, B, yty, x0, state, first):
     return x, r, p, rs, act
 
 
-# F = 8 and 100: less than one 256-column panel, and no multiple of 32
-# k-values; 320, 512: the wide fits; 1000: four panels, the last partial
-@pytest.mark.parametrize("F", [8, 100, 320, 512, 1000])
+# F = 8 and 100: one narrow panel per warpgroup, F not a multiple of 16
+# (or, at 100, of 32); 257: F odd (no 16-byte loads), panels of 160; 320,
+# 512: the wide fits; 1000: two passes of 512 columns, the product through
+# the scratch
+@pytest.mark.parametrize("F", [8, 100, 257, 320, 512, 1000])
 def test_cg_update_matches_plain(cuda, F):
     """The residual pass and three CG steps, kernel and plain version each
-    from the plain version's last state, C = 37 rows (a partial block of
-    32): every output (x, r, p, rs) within 1e-4 and the active flags equal
-    after each pass, and the kernel twice from one state gives the same
-    bits."""
-    C = 37
+    from the plain version's last state (v is p on a step, as in the
+    solve), C = 165 rows (two blocks of 64 and a partial one): every output
+    (x, r, p, rs) within 1e-4 and the active flags equal after each pass;
+    the kernel twice from one state gives the same bits; rows 0 and 1, at
+    their solution, never move, and row 2, frozen after the residual pass,
+    keeps its x, r, p and rs bit for bit."""
+    C = 165
     rng, yty, x0, B = _update_state(C, F, cuda, seed=F)
     b = torch.as_tensor(rng.standard_normal((C, F), dtype=np.float32), device=cuda)
     b[:2] = 0.0
     state = [torch.zeros_like(x0) for _ in range(3)] + [
         torch.zeros(C, device=cuda), torch.zeros(C, dtype=torch.int32, device=cuda)]
     for step in range(4):
+        if step == 1:
+            state[4][2] = 0  # row 2 frozen from here on
+            frozen = [t[2].clone() for t in state]
         before = cg_kernels.LAUNCHES["cg_update"]
         out = {name: _update_pass(update, b, B, yty, x0, state, step == 0)
                for name, update in (("kernel", cg_kernels.cg_update),
@@ -341,7 +348,9 @@ def test_cg_update_matches_plain(cuda, F):
                 np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
                                            atol=1e-4)
         assert not out["kernel"][0][:2].any() and not out["kernel"][4][:2].any()
-        assert out["kernel"][4][2:].all()  # every other row still active
+        assert out["kernel"][4][3:].all()  # every other row still active
+        if step:
+            assert all(torch.equal(t[2], f) for t, f in zip(out["kernel"], frozen))
         state = out["plain"]
 
 
