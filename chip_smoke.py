@@ -755,7 +755,7 @@ def nonzero(counts):
 class SetupSplit(logging.Handler):
     """Collects a fit's set-up steps, (step, seconds) in order, from the
     port's debug lines ``"fit set-up %s in %.4f s"``
-    (``implicit_tpu_torch._device.timed_step``, which synchronizes the card
+    (``implicit_tpu_torch.tracing.timed_step``, which synchronizes the card
     around each step while debug logging is on), an item-item fit's steps
     (``"item-item fit %s in %.4f s"``), and LMF's pool routes."""
 

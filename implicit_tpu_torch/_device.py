@@ -1,14 +1,9 @@
-"""Device resolution (an explicit ``torch.device``, never a silent fallback),
-the float32 matmul precision of the port's products, and the timing of the
-fit's set-up steps."""
+"""Device resolution (an explicit ``torch.device``, never a silent fallback)
+and the float32 matmul precision of the port's products."""
 
 import contextlib
-import logging
-import time
 
 import torch
-
-log = logging.getLogger("implicit_tpu_torch")
 
 
 def resolve_device(device):
@@ -74,32 +69,3 @@ def on_device(device):
     ``torch.cuda.device`` switch for a CUDA device, nothing for the CPU."""
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
-
-@contextlib.contextmanager
-def timed_step(step, device, stage="fit set-up"):
-    """Logs the block's seconds at debug level as ``"<stage> %s in %.4f
-    s"`` (args: the step's name, the seconds): ``"fit set-up %s in %.4f s"``
-    for the factor models' set-up, ``"item-item fit ..."`` for the steps of
-    an item-item similarity build.
-
-    With debug logging on, a CUDA ``device`` (or each of a list of devices,
-    a mesh's) is synchronized before the clock starts and before it stops,
-    so each step counts the device work it queued and none of the steps
-    before; that gives up the overlap of host and device work across steps.
-    With it off, the block runs untimed.
-    """
-    if not log.isEnabledFor(logging.DEBUG):
-        yield
-        return
-    devices = [d for d in (device if isinstance(device, (list, tuple)) else [device])
-               if d.type == "cuda"]
-
-    def sync():
-        for d in dict.fromkeys(devices):
-            torch.cuda.synchronize(d)
-
-    sync()
-    start = time.perf_counter()
-    yield
-    sync()
-    log.debug(stage + " %s in %.4f s", step, time.perf_counter() - start)

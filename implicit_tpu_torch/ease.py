@@ -32,7 +32,7 @@ the JAX package's factorization returns NaN weights there instead.
 import numpy as np
 import torch
 
-from ._device import resolve_device, timed_step
+from ._device import resolve_device
 from .nearest_neighbours import (
     _STAGE,
     ItemItemRecommender,
@@ -42,6 +42,7 @@ from .nearest_neighbours import (
 )
 from .parallel.mesh import check_mesh_arg, resolve_mesh
 from .recommender_base import ModelFitError
+from .tracing import timed_step
 from .utils import check_csr
 
 # the solve holds about 3 (items x items) float32 buffers (gramian, factor,

@@ -19,11 +19,12 @@ import scipy.sparse
 import torch
 from tqdm.auto import tqdm
 
-from .._device import timed_step
+from .. import tracing
 from ..ops import als as als_ops
 from ..parallel import als_sharded
 from ..parallel.mesh import check_mesh_arg
 from ..sparse import BucketedCSR, als_chunk_target, pack_pair_on_device
+from ..tracing import timed_step
 from ..utils import check_csr, check_random_state
 from .mf_base import MatrixFactorizationBase
 
@@ -195,69 +196,74 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
         confidence (C_ui). Unset entries mean P=0, C=1; negative values mean
         "disliked" with confidence |value|.
         """
-        random_state = check_random_state(self.random_state)
-        solve_np = np.float64 if self._compute_dtype == "float64" else np.float32
+        with tracing.span("fit", factors=self.factors, iterations=self.iterations) as fit_span:
+            random_state = check_random_state(self.random_state)
+            solve_np = np.float64 if self._compute_dtype == "float64" else np.float32
 
-        with timed_step("prepare", self.device):
-            Cui = check_csr(user_items)
-            if Cui.dtype != solve_np:
-                Cui = Cui.astype(solve_np)
-            Cui = _drop_stored_zeros(Cui)
-            if self.alpha != 1.0:
-                Cui = self.alpha * Cui
+            with timed_step("prepare", self.device):
+                Cui = check_csr(user_items)
+                if Cui.dtype != solve_np:
+                    Cui = Cui.astype(solve_np)
+                Cui = _drop_stored_zeros(Cui)
+                if self.alpha != 1.0:
+                    Cui = self.alpha * Cui
 
-        users, items = Cui.shape
-        target = als_chunk_target(self.factors, self._compute_dtype)
-        grid = "pow2" if self.grid == "auto" else self.grid
-        if not callback:
-            callback = self.fit_callback
-        if self.mesh is not None:
-            return self._fit_sharded(Cui, random_state, target, grid, show_progress, callback)
-        user_buckets, item_buckets = pack_pair_on_device(
-            Cui, target_entries=target, max_chunk_rows=65536, grid=grid, data_dtype=solve_np,
-            mode=self.ingest, device=self.device)
-        # user table first: the JAX package's stream
-        X = self._initial_factors(self.user_factors, users, random_state)
-        Y = self._initial_factors(self.item_factors, items, random_state)
+            users, items = Cui.shape
+            fit_span.set(users=users, items=items, nnz=Cui.nnz)
+            target = als_chunk_target(self.factors, self._compute_dtype)
+            grid = "pow2" if self.grid == "auto" else self.grid
+            if not callback:
+                callback = self.fit_callback
+            if self.mesh is not None:
+                return self._fit_sharded(Cui, random_state, target, grid, show_progress,
+                                         callback)
+            user_buckets, item_buckets = pack_pair_on_device(
+                Cui, target_entries=target, max_chunk_rows=65536, grid=grid,
+                data_dtype=solve_np, mode=self.ingest, device=self.device)
+            # user table first: the JAX package's stream
+            X = self._initial_factors(self.user_factors, users, random_state)
+            Y = self._initial_factors(self.item_factors, items, random_state)
 
-        self._item_norms = self._user_norms = None
-        self._YtY = None
-        self._XtX = None
-        loss = None
+            self._item_norms = self._user_norms = None
+            self._YtY = None
+            self._XtX = None
+            loss = None
 
-        kw = dict(reg=self.regularization, use_cg=self.use_cg, cg_steps=self.cg_steps,
-                  compute_dtype=self._compute_dtype)
-        gq_user, gq_item = self._gather_quant_sides(users, items)
+            kw = dict(reg=self.regularization, use_cg=self.use_cg, cg_steps=self.cg_steps,
+                      compute_dtype=self._compute_dtype)
+            gq_user, gq_item = self._gather_quant_sides(users, items)
 
-        log.debug("Running %i ALS iterations", self.iterations)
-        with tqdm(total=self.iterations, disable=not show_progress) as progress:
-            for iteration in range(self.iterations):
-                s = time.time()
-                X = als_ops.solve_side(X, Y, user_buckets, gather_quant=gq_user, **kw)
-                Y = als_ops.solve_side(Y, X, item_buckets, gather_quant=gq_item, **kw)
-                if (callback or self.calculate_training_loss) and self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                progress.update(1)
+            log.debug("Running %i ALS iterations", self.iterations)
+            with tqdm(total=self.iterations, disable=not show_progress) as progress:
+                for iteration in range(self.iterations):
+                    s = time.perf_counter()
+                    with tracing.span("iteration", self.device, iteration=iteration):
+                        X = als_ops.solve_side(X, Y, user_buckets, gather_quant=gq_user, **kw)
+                        Y = als_ops.solve_side(Y, X, item_buckets, gather_quant=gq_item, **kw)
+                        if ((callback or self.calculate_training_loss)
+                                and self.device.type == "cuda"):
+                            torch.cuda.synchronize(self.device)
+                    progress.update(1)
 
-                if self.calculate_training_loss:
-                    loss = als_ops.calculate_loss_bucketed(
-                        user_buckets, X, Y, self.regularization)
-                    progress.set_postfix({"loss": loss})
-                    if not show_progress:
-                        log.info("loss %.4f", loss)
+                    if self.calculate_training_loss:
+                        loss = als_ops.calculate_loss_bucketed(
+                            user_buckets, X, Y, self.regularization)
+                        progress.set_postfix({"loss": loss})
+                        if not show_progress:
+                            log.info("loss %.4f", loss)
 
-                if callback:
-                    callback(iteration, time.time() - s, loss)
+                    if callback:
+                        callback(iteration, time.perf_counter() - s, loss)
 
-        with timed_step("copy back", self.device):
-            storage = _as_torch_dtype(self.dtype)
-            user_factors, item_factors = (T.to(storage).cpu().numpy() for T in (X, Y))
-        self.user_factors, self.item_factors = user_factors, item_factors
+            with timed_step("copy back", self.device):
+                storage = _as_torch_dtype(self.dtype)
+                user_factors, item_factors = (T.to(storage).cpu().numpy() for T in (X, Y))
+            self.user_factors, self.item_factors = user_factors, item_factors
 
-        if self.calculate_training_loss:
-            log.info("Final training loss %.4f", loss)
+            if self.calculate_training_loss:
+                log.info("Final training loss %.4f", loss)
 
-        self._check_factors(X, Y)
+            self._check_factors(X, Y)
 
     def _fit_sharded(self, Cui, random_state, target, grid, show_progress, callback):
         """The fit over the model's mesh, on the row-sharded layout
@@ -294,13 +300,14 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
         log.debug("Running %i ALS iterations over %r", self.iterations, mesh)
         with tqdm(total=self.iterations, disable=not show_progress) as progress:
             for iteration in range(self.iterations):
-                s = time.time()
-                Xs, Ys = als_sharded.fit(Xs, Ys, user_sh, item_sh, mesh, self.regularization, 1,
-                                         **kw)
-                if callback or self.calculate_training_loss:
-                    for d in devices:
-                        if d.type == "cuda":
-                            torch.cuda.synchronize(d)
+                s = time.perf_counter()
+                with tracing.span("iteration", devices, iteration=iteration):
+                    Xs, Ys = als_sharded.fit(Xs, Ys, user_sh, item_sh, mesh, self.regularization,
+                                             1, **kw)
+                    if callback or self.calculate_training_loss:
+                        for d in devices:
+                            if d.type == "cuda":
+                                torch.cuda.synchronize(d)
                 progress.update(1)
 
                 if self.calculate_training_loss:
@@ -311,7 +318,7 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
                         log.info("loss %.4f", loss)
 
                 if callback:
-                    callback(iteration, time.time() - s, loss)
+                    callback(iteration, time.perf_counter() - s, loss)
 
         with timed_step("copy back", devices):
             X = als_sharded.gather_rows(Xs, users, first)

@@ -52,10 +52,11 @@ import numpy as np
 import torch
 from tqdm.auto import tqdm
 
-from .._device import full_f32_matmul, timed_step
+from .._device import full_f32_matmul
 from ..ops import membership
 from ..parallel.mesh import check_mesh_arg
 from ..sparse import BucketedCSR
+from ..tracing import timed_step
 from ..utils import check_csr, check_random_state
 from .mf_base import MatrixFactorizationBase
 

@@ -43,9 +43,10 @@ import torch
 import torch.nn.functional as nnf
 from tqdm.auto import tqdm
 
-from .._device import full_f32_matmul, timed_step
+from .._device import full_f32_matmul
 from ..parallel.mesh import check_mesh_arg, replicated, shard_buckets
 from ..sparse import BucketedCSR, pack_pair_on_device
+from ..tracing import timed_step
 from ..utils import check_csr, check_random_state
 from .mf_base import MatrixFactorizationBase
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from scipy.sparse import csr_matrix
 
+from .. import tracing
 from .._device import resolve_device
 from ..ops.topk import (
     _score_budget_elements, _upload, shard_items_for_topk, topk_async, topk_streaming,
@@ -100,8 +101,7 @@ def _validate_user_items(userid, user_items):
     """The recommend() contract checks on a per-user interaction matrix."""
     if not isinstance(user_items, csr_matrix):
         raise ValueError("user_items needs to be a CSR sparse matrix")
-    count = 1 if np.isscalar(userid) else len(userid)
-    if user_items.shape[0] != count:
+    if user_items.shape[0] != _batch_size(userid):
         raise ValueError("user_items must contain 1 row for every user in userids")
 
 
@@ -144,19 +144,34 @@ def _post_similar(ids, scores, query_norm, scalar, subset):
     return ids, scores
 
 
+def _finish(future, post, root=None):
+    """``post(*future.result())``: the spans ``wait`` and ``post``, under
+    ``root`` (a batch's span) where it is given, else under the innermost
+    open span."""
+    with tracing.span("wait", parent=root):
+        out = future.result()
+    with tracing.span("post", parent=root):
+        return post(*out)
+
+
 def _pipeline(dispatches, max_in_flight):
-    """Drains an iterator of ``(future, post)`` pairs through a window of at
-    most ``max_in_flight`` dispatched batches, yielding ``post(*future.
-    result())`` in input order: the engine of every ``*_pipelined`` method."""
+    """Drains an iterator of ``(future, post)`` pairs, or ``(future, post,
+    root)`` with the batch's span, through a window of at most
+    ``max_in_flight`` dispatched batches, yielding ``post(*future.
+    result())`` in input order (:func:`_finish`): the engine of every
+    ``*_pipelined`` method."""
     window = deque()
-    for future, post in dispatches:
-        window.append((future, post))
+    for batch in dispatches:
+        window.append(batch)
         if len(window) >= max_in_flight:
-            f, p = window.popleft()
-            yield p(*f.result())
+            yield _finish(*window.popleft())
     while window:
-        f, p = window.popleft()
-        yield p(*f.result())
+        yield _finish(*window.popleft())
+
+
+def _batch_size(userid):
+    """The users of a recommend call: 1 for a scalar id."""
+    return 1 if np.isscalar(userid) else len(userid)
 
 
 def _entry(entry):
@@ -406,31 +421,37 @@ class MatrixFactorizationBase(RecommenderBase):
         future is read, so recommend is ``post(*future.result())``. ``prep``
         is a :meth:`_prep_recommend_items` result made once per stream.
         """
-        if filter_already_liked_items or recalculate_user:
-            _validate_user_items(userid, user_items)
+        with tracing.span("validate"):
+            if filter_already_liked_items or recalculate_user:
+                _validate_user_items(userid, user_items)
 
-        user = self._user_factor(userid, user_items, recalculate_user)
-        if prep is None:
-            prep = self._prep_recommend_items(items, filter_items, N)
-        N, items, table = prep
+        with tracing.span("user rows"):
+            user = self._user_factor(userid, user_items, recalculate_user)
 
-        filter_query_items = None
-        if filter_already_liked_items:
-            filter_query_items = user_items
-            if items is not None:
-                filter_query_items = _positions_in_subset(items, filter_query_items)
+        with tracing.span("dispatch"):
+            if prep is None:
+                prep = self._prep_recommend_items(items, filter_items, N)
+            N, items, table = prep
 
-        if isinstance(table, _StreamTable):
-            future = _ReadyFuture(*topk_streaming(
-                table.array, user, N, filter_query_items=filter_query_items,
-                filter_items=filter_items, device=self.device, mesh=table.mesh))
-        elif isinstance(table, _MeshTable):
-            future = topk_async(table.shards, user, N, filter_query_items=filter_query_items,
-                                filter_items=filter_items, mesh=table.mesh,
-                                n_items=table.n_items)
-        else:
-            future = topk_async(table, user, N, filter_query_items=filter_query_items,
-                                filter_items=filter_items)
+            filter_query_items = None
+            if filter_already_liked_items:
+                filter_query_items = user_items
+                if items is not None:
+                    filter_query_items = _positions_in_subset(items, filter_query_items)
+
+            with tracing.span("topk"):
+                if isinstance(table, _StreamTable):
+                    future = _ReadyFuture(*topk_streaming(
+                        table.array, user, N, filter_query_items=filter_query_items,
+                        filter_items=filter_items, device=self.device, mesh=table.mesh))
+                elif isinstance(table, _MeshTable):
+                    future = topk_async(table.shards, user, N,
+                                        filter_query_items=filter_query_items,
+                                        filter_items=filter_items, mesh=table.mesh,
+                                        n_items=table.n_items)
+                else:
+                    future = topk_async(table, user, N, filter_query_items=filter_query_items,
+                                        filter_items=filter_items)
 
         def post(ids, scores):
             return _post_recommend(ids, scores, np.isscalar(userid), items)
@@ -447,9 +468,11 @@ class MatrixFactorizationBase(RecommenderBase):
         recalculate_user=False,
         items=None,
     ):
-        future, post = self._recommend_async(userid, user_items, N, filter_already_liked_items,
-                                             filter_items, recalculate_user, items)
-        return post(*future.result())
+        with tracing.span("recommend", users=_batch_size(userid), N=N):
+            future, post = self._recommend_async(userid, user_items, N,
+                                                 filter_already_liked_items, filter_items,
+                                                 recalculate_user, items)
+            return _finish(future, post)
 
     recommend.__doc__ = RecommenderBase.recommend.__doc__
 
@@ -508,10 +531,15 @@ class MatrixFactorizationBase(RecommenderBase):
                                                filter_items, recalculate_user)
 
         def dispatches():
+            # each batch's span closes once the batch is queued: its wait and
+            # post come later, between other batches', under it by parent=
             for entry in batches:
                 userid, user_items = _entry(entry)
-                yield self._recommend_async(userid, user_items, N, filter_already_liked_items,
-                                            filter_items, recalculate_user, items, prep=prep)
+                with tracing.span("recommend", users=_batch_size(userid), N=N) as root:
+                    future, post = self._recommend_async(
+                        userid, user_items, N, filter_already_liked_items, filter_items,
+                        recalculate_user, items, prep=prep)
+                yield future, post, root
 
         return _pipeline(dispatches(), max_in_flight)
 

@@ -32,16 +32,17 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ._device import full_f32_matmul, resolve_device, timed_step
+from ._device import full_f32_matmul, resolve_device
 from .models.bpr import _scatter_add
 from .ops.topk import NEG_MAX, _score_budget_elements
 from .parallel.mesh import check_mesh_arg, mesh_state, resolve_mesh
 from .recommender_base import RecommenderBase, _loader
+from .tracing import timed_step
 from .utils import _batch_call, _filter_items_from_results, check_csr
 
 _NEG_MAX64 = -np.finfo(np.float64).max
 
-# the log stage of the similarity build's steps (``_device.timed_step``)
+# the log stage of the similarity build's steps (``tracing.timed_step``)
 _STAGE = "item-item fit"
 
 

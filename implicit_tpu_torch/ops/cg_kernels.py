@@ -37,12 +37,15 @@ import contextlib
 import numpy as np
 import torch
 
+from .. import tracing
 from .._device import full_f32_matmul
 from . import _build
 
 KERNELS = ("cg_full", "gramian_cg", "weighted_matvec")
 VARIANTS = ("f32", "bf16", "i8")
-LAUNCHES = {**{f"{k}_{v}": 0 for k in KERNELS for v in VARIANTS}, "cg_update": 0}
+# the tracing counters launches.<entry>
+LAUNCHES = tracing.register(
+    "launches", {**{f"{k}_{v}": 0 for k in KERNELS for v in VARIANTS}, "cg_update": 0})
 
 # widest factor vector cg_full and gramian_cg hold in registers (8 values
 # per lane); weighted_matvec and cg_update take any width

@@ -39,6 +39,7 @@ the order among exactly tied scores can differ from the JAX package's
 import numpy as np
 import torch
 
+from .. import tracing
 from .._device import full_f32_matmul, on_device, resolve_device
 
 NEG_MAX = -float(np.finfo(np.float32).max)
@@ -59,6 +60,7 @@ def _score_budget_elements(device):
     fixed 256 MB.
     """
     if device.type == "cuda":
+        tracing.count("device.mem_queries")
         free, _ = torch.cuda.mem_get_info(device)
         return max(min(free // 2, 4 << 30) // 4, 1 << 22)
     return _MAX_SCORE_ELEMENTS_CPU

@@ -19,7 +19,8 @@ arrays, deriving the transposed side itself.
 import numpy as np
 import torch
 
-from ._device import resolve_device, timed_step
+from ._device import resolve_device
+from .tracing import timed_step
 
 
 def length_class_grid(nnz_per_row, min_L=8, grid="fine"):

@@ -1063,3 +1063,39 @@ def test_ivf_model_on_cuda_probe_all_is_exact(cuda):
                                  model.model.recommend(users, plays[users], N=10), 1e-5,
                                  row_scale=True)
     assert err <= 1e-5 and not bad
+
+
+def test_spans_time_a_fit_and_count_a_request_on_cuda(cuda):
+    """Under a profiler, a fit on the card: each iteration span's device
+    seconds come from its CUDA events, and it counts its kernel launches; a
+    recommend asks for free memory three times (two table checks, the
+    top-k's budget)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from implicit_tpu_torch import tracing
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+
+    plays = generate_synthetic(2000, 1000, 60000, seed=3)
+
+    def fit():
+        model = AlternatingLeastSquares(factors=64, iterations=3, random_state=1, device=cuda)
+        model.fit(plays, show_progress=False)
+        return model
+
+    fit()  # the kernels built and loaded outside the profile
+    tracing.clear()
+    users = np.arange(64)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        fit().recommend(users, plays[users], N=10)
+    spans = tracing.spans()
+    tracing.clear()
+    root, = [s for s in spans if s["name"] == "fit"]
+    iterations = [s for s in spans if s["name"] == "iteration"]
+    assert len(iterations) == 3
+    for it in iterations:
+        # the fit's copy back waits for the card: every iteration ran inside it
+        assert 0 < it["device_s"] < (root["end_ns"] - root["start_ns"]) / 1e9
+        assert sum(n for k, n in it["counts"].items() if k.startswith("launches.")) > 0
+    request, = [s for s in spans if s["name"] == "recommend"]
+    assert request["counts"]["device.mem_queries"] == 3
