@@ -11,8 +11,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    no CUDA device is a failure;
 1. build the CUDA kernels from ``implicit_tpu_torch/ops/csrc`` (nvcc, one
    process per library, all at once, always from the sources), and print
-   ptxas's registers and spills of every ``cg_full``, ``weighted_matvec``
-   and ``cg_update`` instantiation, which must not spill;
+   ptxas's registers and spills of every ``cg_full``, ``weighted_matvec``,
+   ``cg_update`` and ``pcg64_uniform`` instantiation, which must not spill;
 2. each kernel against its plain PyTorch version on the card, in float32,
    bfloat16 and int8 (per-row scales), at the fit's own class shapes, with
    times and the least time the card could take (``bound``); the same bar
@@ -35,13 +35,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    loop of launches (``cuda_ms``), as a caller sees them; the kernels whose
    launches are short (``weighted_matvec``, ``cg_update``) also give the
    device time of the same launches replayed from a CUDA graph
-   (``cuda_graph_ms``) beside it;
+   (``cuda_graph_ms``) beside it. The starting-factor draw
+   (``ops/pcg64.py``, ``csrc/pcg64_uniform.cu``) at the fit cells' tables
+   (358,868 x 128, 138,493 x 256, float32): numpy's draw times 0.01 bit
+   for bit at the first, the generator left where numpy leaves it, and ms
+   over 100 launches beside numpy's host draw and upload, which it replaces;
 3. the ingest at the last.fm-360k shape (360k users x 160k items, 17.5M
    nnz): ``pack_pair_on_device``'s device pack against its host pack, as
    the f=128 float32 fit packs, on the pow2 and fine grids, every tensor
    equal and one altered entry rejected, with both routes' times; then the
    main paths, each with the launch counters set to 0 just before it and
-   read just after, which must show every routed chunk, and each fit's
+   read just after, which must show every routed chunk and both starting
+   tables drawn on the card (``init.device_draws``), and each fit's
    set-up (wall minus the iterations) split by step from the port's debug
    lines: ``AlternatingLeastSquares.fit`` at that shape at factors=128 in
    float32 (and again with ``ingest="host"``, which must give the same
@@ -254,6 +259,10 @@ SCALE_BAR = {("weighted_matvec", "f320_head_class")}
 # the wide fits' classes in KERNELS, as (factors, compute dtype) by case
 WIDE_CASES = {"f512_short": (512, "bfloat16"), "f512_long": (512, "bfloat16"),
               "f320_short": (320, "float32"), "f320_long": (320, "float32")}
+
+# the starting-factor draw's cases, (n, F) float32: the fit cells' user
+# tables; "shape" is also checked bit for bit against numpy's draw
+DRAW_CASES = {"shape": (358868, 128), "ml20m_user_table": (138493, 256)}
 
 # the card's peaks for bound_ms (H100 SXM data sheet, dense, at 700 W): HBM,
 # float32 on the CUDA cores, and the tensor cores in TF32 and bfloat16
@@ -719,6 +728,63 @@ def phase_kernels(device):
     return results
 
 
+def phase_draw(device):
+    """The starting-factor draw on the card at ``DRAW_CASES``: bit for bit
+    numpy's at "shape", where a draw one float late must differ; ms over
+    ``REPS`` launches (and from a CUDA graph), the bound (the table's
+    bytes written over 3.35 TB/s) and the host route it replaces (numpy's
+    draw, the scaling, the upload), as a row of the kernels line."""
+    import torch
+
+    from implicit_tpu_torch.ops import pcg64
+
+    row = {"name": "pcg64_uniform", "route": "cuda",
+           "source": "implicit_tpu_torch/ops/csrc/pcg64_uniform.cu",
+           "replaces": "numpy's host draw (models/als.py:_initial_factors)", "library_ms": None}
+    for which, (n, F) in DRAW_CASES.items():
+        tag = f"pcg64_uniform f32 {n} x {F}"
+        rng = np.random.default_rng(8400000001)
+        res = {"shape_nF": [n, F]}
+        if which == "shape":
+            got = pcg64.uniform_factors(rng, (n, F), torch.float32, device).cpu().numpy()
+            host = np.random.default_rng(8400000001)
+            want = host.random((n, F), dtype=np.float32) * np.float32(0.01)
+            late = np.random.default_rng(8400000001)
+            late.random(1, dtype=np.float32)
+            late = late.random((n, F), dtype=np.float32) * np.float32(0.01)
+            res["bits_differing"] = int((got.view(np.uint32) != want.view(np.uint32)).sum())
+            res["late_draw_differing"] = int((got.view(np.uint32) != late.view(np.uint32)).sum())
+            if res["bits_differing"] or rng.bit_generator.state != host.bit_generator.state:
+                raise AssertionError(f"{tag}: {res['bits_differing']} values differ from numpy's "
+                                     "draw, or the generator was left elsewhere")
+            if not res["late_draw_differing"]:
+                raise AssertionError(f"{tag}: the check does not tell a late draw apart")
+            del got, want, late
+
+        def run():
+            pcg64.uniform_factors(rng, (n, F), torch.float32, device)
+
+        def host_route():
+            draw = rng.random((n, F), dtype=np.float32)
+            return torch.as_tensor(draw, device=device) * 0.01
+
+        res["ms"] = cuda_ms(run, REPS)
+        res["graph_ms"] = cuda_graph_ms(run, REPS)
+        res["host_route_ms"] = cuda_ms(host_route, 3)
+        res["bound_ms"] = n * F * 4 / PEAK_BYTES_PER_S * 1e3
+        say(2, f"{tag}: " + (f"numpy's bits in every value ({res['late_draw_differing']} differ "
+                             "from a draw one float late); " if which == "shape" else "")
+            + f"kernel {res['ms']:.4f} ms (graph {res['graph_ms']:.4f}), numpy's draw and "
+              f"upload {res['host_route_ms']:.1f} ms; bound {res['bound_ms']:.4f} ms by bytes "
+              f"({n * F * 4 / 1e6:.1f} MB), {100 * res['bound_ms'] / res['graph_ms']:.1f}% of it")
+        if which == "shape":
+            row.update(ms=res["ms"], plain_ms=res["host_route_ms"], bound_ms=res["bound_ms"],
+                       bound_by="bytes", max_abs_err=0.0)
+        row[which] = res
+        torch.cuda.empty_cache()
+    return row
+
+
 def expected_launches(csr, factors, compute_dtype, iterations, gather_quant=(False, False),
                       grid="pow2", cg_steps=3):
     """Launches of each kernel entry point the fit's routing asks for: both
@@ -789,12 +855,20 @@ def port_debug_log():
         log.setLevel(level)
 
 
+def device_draws():
+    """Starting factor tables drawn on the card so far (``ops.pcg64``)."""
+    from implicit_tpu_torch import tracing
+
+    return tracing.counters()["init.device_draws"]
+
+
 def fit_path(tag, plays, device, factors, dtype, gather_quant, iterations=3, ingest="auto",
              phase=3, **factory_kwargs):
     """One fit at the full shape, its launches read against the chunks
-    routed, and its set-up (fit wall minus the iterations) split by step.
-    ``factory_kwargs`` go to the factory as they are (phase 8's
-    ``use_gpu``)."""
+    routed (and ``pcg64_uniform`` against the two starting tables, which a
+    fresh fit from an int seed draws on the card), and its set-up (fit wall
+    minus the iterations) split by step. ``factory_kwargs`` go to the
+    factory as they are (phase 8's ``use_gpu``)."""
     from implicit_tpu_torch.als import AlternatingLeastSquares
     from implicit_tpu_torch.ops import cg_kernels
 
@@ -804,14 +878,16 @@ def fit_path(tag, plays, device, factors, dtype, gather_quant, iterations=3, ing
     sides = model._gather_quant_sides(*plays.shape)
     want = expected_launches(plays, factors, model._compute_dtype, iterations, sides,
                              cg_steps=model.cg_steps)
+    want["pcg64_uniform"] = 2
     times = []
     with port_debug_log() as split:
         cg_kernels.reset_launches()
+        draws = device_draws()
         t0 = time.perf_counter()
         model.fit(plays, show_progress=False,
                   callback=lambda it, elapsed, loss: times.append(elapsed))
         wall = time.perf_counter() - t0
-        launches = dict(cg_kernels.LAUNCHES)
+        launches = dict(cg_kernels.LAUNCHES, pcg64_uniform=device_draws() - draws)
     for f in (model.user_factors, model.item_factors):
         if not np.isfinite(np.asarray(f, dtype=np.float32)).all():
             raise AssertionError(f"fit {tag}: non-finite factors")
@@ -2422,14 +2498,16 @@ def mesh_fit(tag, plays, device, mesh, factors, dtype, gather_quant, iterations=
     sides = model._gather_quant_sides(*plays.shape)
     want = mesh_launches(plays, mesh.size, factors, model._compute_dtype, iterations, sides,
                          cg_steps=model.cg_steps)
+    want["pcg64_uniform"] = 2  # both starting tables, on the mesh's first device
     times = []
     with port_debug_log() as split:
         cg_kernels.reset_launches()
+        draws = device_draws()
         t0 = time.perf_counter()
         model.fit(plays, show_progress=False,
                   callback=lambda it, elapsed, loss: times.append(elapsed))
         wall = time.perf_counter() - t0
-        launches = dict(cg_kernels.LAUNCHES)
+        launches = dict(cg_kernels.LAUNCHES, pcg64_uniform=device_draws() - draws)
     for f in (model.user_factors, model.item_factors):
         if not np.isfinite(np.asarray(f, dtype=np.float32)).all():
             raise AssertionError(f"meshed fit {tag}: non-finite factors")
@@ -3470,6 +3548,7 @@ PTXAS_KERNELS = {
     "weighted_matvec": {"wmv_narrow": ("CH", "G", "NCH"), "wmv_wide": ("CH",),
                         "wmv_sum_slices": ()},
     "cg_update": {"cg_update_kernel": ("NP",), "yty_split_kernel": ()},
+    "pcg64_uniform": {"pcg64_uniform_kernel": ("storage",)},
 }
 
 
@@ -3532,6 +3611,7 @@ def main():
                 say(1, f"{lib} ptxas: {line.strip()}")
 
     kernels = phase_kernels(device)
+    draw = phase_draw(device)
     plays = lastfm_plays()
     launches, f32_factors, phase3 = phase_main_path(device, plays)
     phase_quality(device)
@@ -3545,7 +3625,8 @@ def main():
     phase_mesh_fits(device, plays, sgd, item_item)
     phase_bpr_variants(device, plays, sgd)
 
-    print(json.dumps({"kernels": kernel_rows(kernels, launches)}))
+    draw["launches"] = launches["pcg64_uniform"]  # phase 3's and phase 9's fits
+    print(json.dumps({"kernels": kernel_rows(kernels, launches) + [draw]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,7 @@ from tqdm.auto import tqdm
 
 from .. import tracing
 from ..ops import als as als_ops
+from ..ops import pcg64
 from ..parallel import als_sharded
 from ..parallel.mesh import check_mesh_arg
 from ..sparse import BucketedCSR, als_chunk_target, pack_pair_on_device
@@ -337,19 +338,27 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
         model's), in the solve dtype (default the model's): a copy of
         ``factors`` where the model has them (the solves update it in
         place), else the JAX package's start, numpy's float32 draw times
-        0.01 rounded to the storage dtype, with the scaling and both casts
-        on the device (the same bits as numpy's)."""
+        0.01 rounded to the storage dtype. On a CUDA device a PCG64 stream
+        (any int, None or RandomState seed) is drawn there, scaled and
+        rounded in one kernel (``ops.pcg64``); any other stream, or the CPU,
+        takes numpy's draw, scaled and cast on the device. Both give numpy's
+        bits and leave ``random_state`` where numpy's draw does."""
         device = self.device if device is None else device
         if solve is None:
             solve = torch.float64 if self._compute_dtype == "float64" else torch.float32
         if factors is not None:
             with timed_step("factor copy", device):
                 return torch.tensor(np.asarray(factors), device=device).to(solve)
+        storage = _as_torch_dtype(self.dtype)
+        if device.type == "cuda" and type(random_state.bit_generator) is np.random.PCG64:
+            with timed_step("factor draw", device):
+                return pcg64.uniform_factors(random_state, (n, self.factors), storage,
+                                             device).to(solve)
+        tracing.count("init.host_draws")
         with timed_step("factor draw", device):
             draw = random_state.random((n, self.factors), dtype=np.float32)
         with timed_step("factor init", device):
-            return (torch.as_tensor(draw, device=device) * 0.01).to(
-                _as_torch_dtype(self.dtype)).to(solve)
+            return (torch.as_tensor(draw, device=device) * 0.01).to(storage).to(solve)
 
     def _solve_rows(self, row_items, other_factors, gram):
         """Dense normal-equation solves for the rows of ``row_items``."""

@@ -28,6 +28,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U64 = ctypes.c_uint64
 
 
 def _variants(name, args):
@@ -53,6 +54,9 @@ SIGNATURES = {
                         "weighted_matvec_slices": [_I, _P, _I, _I, _I]},
     # (yty, v, s, t, x, r, p, rs, act, C, F, first, stream)
     "cg_update": {"cg_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    # (state_hi, state_lo, inc_hi, inc_lo, n, buffered, kept, out, storage, blocks, stream)
+    "pcg64_uniform": {"pcg64_uniform": [_U64, _U64, _U64, _U64, ctypes.c_longlong, _I,
+                                        ctypes.c_uint32, _P, _I, _I, _P]},
 }
 
 _libs = {}

@@ -25,7 +25,9 @@ annotation: the profiler copies a user annotation onto the device's
 timeline, where it would be counted as device work.
 
 Counters always count, a plain integer add each: ``device.mem_queries``
-(one per ``torch.cuda.mem_get_info`` call) and the groups that modules
+(one per ``torch.cuda.mem_get_info`` call), ``init.device_draws`` and
+``init.host_draws`` (one per starting factor table drawn on the card,
+``ops.pcg64``, or by numpy on the host) and the groups that modules
 register, such as ``launches.<entry>`` (``ops.cg_kernels.LAUNCHES``).
 
 :func:`timed_step` is the set-up steps' block: a span, and the debug line of
@@ -47,7 +49,8 @@ log = logging.getLogger("implicit_tpu_torch")
 # request 7
 MAX_SPANS = 50_000
 
-_COUNTS = {"device.mem_queries": 0, "tracing.dropped": 0}
+_COUNTS = {"device.mem_queries": 0, "init.device_draws": 0, "init.host_draws": 0,
+           "tracing.dropped": 0}
 _GROUPS = {}
 _spans = collections.deque()
 _ids = itertools.count(1)

@@ -1099,3 +1099,113 @@ def test_spans_time_a_fit_and_count_a_request_on_cuda(cuda):
         assert sum(n for k, n in it["counts"].items() if k.startswith("launches.")) > 0
     request, = [s for s in spans if s["name"] == "recommend"]
     assert request["counts"]["device.mem_queries"] == 3
+
+
+# the starting-factor draw: csrc/pcg64_uniform.cu against numpy's own draw
+
+
+# (1031, 1024): 527,872 pairs over the grid's 262,144 threads, so each thread
+# steps by the grid's jump twice or three times
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,F,drawn", [(1, 1, 0), (37, 9, 0), (1031, 1024, 0), (1031, 1023, 0),
+                                       (1, 1, 1), (37, 9, 3), (1031, 1024, 1)])
+def test_pcg64_draw_is_numpys(cuda, n, F, drawn, storage):
+    """The kernel's table is ``rng.random((n, F), dtype=np.float32) *
+    np.float32(0.01)`` cast to the storage dtype, bit for bit (from a kept
+    half where ``drawn`` is odd), and the generator is left where numpy's
+    draw leaves it."""
+    from implicit_tpu_torch import tracing
+    from implicit_tpu_torch.ops import pcg64
+
+    rng, ref = np.random.default_rng(2**62 + 11), np.random.default_rng(2**62 + 11)
+    rng.random(drawn, dtype=np.float32)
+    ref.random(drawn, dtype=np.float32)
+    before = tracing.counters()["init.device_draws"]
+    got = pcg64.uniform_factors(rng, (n, F), storage, cuda)
+    torch.cuda.synchronize()
+    assert tracing.counters()["init.device_draws"] == before + 1
+    want = torch.from_numpy(ref.random((n, F), dtype=np.float32) * np.float32(0.01))
+    want = want.to(storage).float()
+    assert got.dtype == torch.float32 and got.shape == (n, F)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert rng.bit_generator.state == ref.bit_generator.state
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16, np.float64])
+def test_fit_on_cuda_starts_from_the_cpu_fits_draw(cuda, dtype):
+    """An ``iterations=0`` fit on the card draws both tables there and ends
+    with the CPU fit's factors, bit for bit; the caller's generator reads on
+    as after the CPU fit."""
+    from implicit_tpu_torch import tracing
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+
+    plays = generate_synthetic(3001, 707, 20000, seed=4)  # n F odd on both sides
+    fits, next_draws = {}, {}
+    for dev in ("cpu", cuda):
+        rng = np.random.default_rng(9)
+        before = tracing.counters()
+        model = AlternatingLeastSquares(factors=33, iterations=0, random_state=rng, dtype=dtype,
+                                        device=dev)
+        model.fit(plays, show_progress=False)
+        moved = {k: tracing.counters()[k] - before[k]
+                 for k in ("init.device_draws", "init.host_draws")}
+        on_card = dev == cuda
+        assert moved == {"init.device_draws": 2 * on_card, "init.host_draws": 2 * (not on_card)}
+        fits[str(dev)] = (model.user_factors, model.item_factors)
+        next_draws[str(dev)] = rng.random(5)
+    for a, b in zip(fits["cuda"], fits["cpu"]):
+        assert a.dtype == b.dtype == dtype
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(next_draws["cuda"], next_draws["cpu"])
+
+
+def test_fit_on_cuda_from_another_stream_takes_numpys_draw(cuda):
+    """A ``Generator`` over MT19937 is drawn by numpy on the host and
+    uploaded: the same tables as on the CPU, two host draws counted."""
+    from implicit_tpu_torch import tracing
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+
+    plays = generate_synthetic(500, 300, 6000, seed=4)
+    fits = {}
+    for dev in ("cpu", cuda):
+        before = tracing.counters()
+        model = AlternatingLeastSquares(factors=16, iterations=0, device=dev,
+                                        random_state=np.random.Generator(np.random.MT19937(5)))
+        model.fit(plays, show_progress=False)
+        assert tracing.counters()["init.host_draws"] == before["init.host_draws"] + 2
+        assert tracing.counters()["init.device_draws"] == before["init.device_draws"]
+        fits[str(dev)] = (model.user_factors, model.item_factors)
+    for a, b in zip(fits["cuda"], fits["cpu"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_profiled_fit_on_cuda_draws_in_its_factor_draw_steps(cuda):
+    """Under a profiler, a fit on the card has one ``factor draw`` step per
+    table and no ``factor init``; its ``fit`` span counts two device draws."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from implicit_tpu_torch import tracing
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+
+    plays = generate_synthetic(2000, 1000, 60000, seed=3)
+
+    def fit():
+        AlternatingLeastSquares(factors=64, iterations=1, random_state=1, device=cuda).fit(
+            plays, show_progress=False)
+
+    fit()  # the kernels built and loaded outside the profile
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        fit()
+    spans = tracing.spans()
+    tracing.clear()
+    root, = [s for s in spans if s["name"] == "fit"]
+    steps = [s for s in spans if s["attrs"].get("stage") == "fit set-up"]
+    names = [s["name"] for s in steps]
+    assert names.count("factor draw") == 2 and "factor init" not in names
+    assert all(s["device_s"] is not None for s in steps if s["name"] == "factor draw")
+    assert root["counts"]["init.device_draws"] == 2 and "init.host_draws" not in root["counts"]
