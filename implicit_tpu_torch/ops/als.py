@@ -35,6 +35,7 @@ Confidences follow the reference: a negative value means "disliked"
 import numpy as np
 import torch
 
+from .. import tracing
 from .._device import full_f32_matmul
 from . import cg_kernels
 
@@ -253,24 +254,33 @@ def _solve_side_core(X, Yc, YtY_reg, buckets, use_cg, cg_steps, compute_dtype):
     ``weighted_matvec`` and ``cg_update`` kernels (the JAX package runs its
     cg_full and gramian_cg kernels there, or its composed CG where
     ``gramian_tile_l`` finds no tile); it is a route, not a fallback: on
-    CUDA it launches the kernels.
+    CUDA it launches the kernels. Its classes run inside the span ``wide
+    solve`` (``tracing``; attrs ``stage``, ``factors``, ``classes``,
+    ``rows`` with entries, ``entries`` and ``passes`` per row, all from the
+    host-side plan), recorded only under a profiler.
     """
     factors = X.shape[1]
-    max_l = _full_cg_max_l(compute_dtype, factors)
     f64 = _torch_dtype(compute_dtype) == torch.float64
-    wide = factors > cg_kernels.MAX_FACTORS
-    for cls in buckets.classes:
-        chunks = _class_chunks(cls)
-        if not use_cg:
-            X = _cho_class(X, Yc, YtY_reg, chunks)
-        elif f64:
-            X = _cg_class(X, Yc, YtY_reg, chunks, cg_steps)
-        elif wide:
-            X = _cg_class(X, Yc, YtY_reg, chunks, cg_steps, use_pallas=True)
-        elif cls.L <= max_l:
-            X = _cg_full_class(X, Yc, YtY_reg, chunks, cg_steps)
-        else:
-            X = _long_row_class(X, Yc, YtY_reg, chunks, cg_steps)
+    if use_cg and not f64 and factors > cg_kernels.MAX_FACTORS:
+        with tracing.span("wide solve", X.device, stage="model step") as span:
+            if span.id is not None:  # recorded: the plan's numbers, read on the host
+                span.set(factors=factors, classes=len(buckets.classes),
+                         rows=sum(sum(cls.n_valid) for cls in buckets.classes),
+                         entries=buckets.nnz, passes=cg_steps + 1)
+            for cls in buckets.classes:
+                X = _cg_class(X, Yc, YtY_reg, _class_chunks(cls), cg_steps, use_pallas=True)
+    else:
+        max_l = _full_cg_max_l(compute_dtype, factors)
+        for cls in buckets.classes:
+            chunks = _class_chunks(cls)
+            if not use_cg:
+                X = _cho_class(X, Yc, YtY_reg, chunks)
+            elif f64:
+                X = _cg_class(X, Yc, YtY_reg, chunks, cg_steps)
+            elif cls.L <= max_l:
+                X = _cg_full_class(X, Yc, YtY_reg, chunks, cg_steps)
+            else:
+                X = _long_row_class(X, Yc, YtY_reg, chunks, cg_steps)
     if buckets.empty_rows is not None:
         X[buckets.empty_rows] = 0.0
     return X

@@ -24,6 +24,14 @@ long-lived process that profiles again still records. Nothing here opens a profi
 annotation: the profiler copies a user annotation onto the device's
 timeline, where it would be counted as device work.
 
+The program's spans: ``fit`` (a root) holds its set-up steps
+(:func:`timed_step`) and an ``iteration`` per iteration, with a CUDA
+device; past ``ops.cg_kernels.MAX_FACTORS`` factors an ``iteration`` holds
+a ``wide solve`` per half-iteration (``ops/als.py:_solve_side_core``, the
+classes of the composed CG, attr ``stage`` "model step"), with a CUDA
+device. ``recommend`` (a root) holds ``validate``, ``user rows``,
+``dispatch`` (with its ``topk``), ``wait`` and ``post``.
+
 Counters always count, a plain integer add each: ``device.mem_queries``
 (one per ``torch.cuda.mem_get_info`` call), ``init.device_draws`` and
 ``init.host_draws`` (one per starting factor table drawn on the card,
