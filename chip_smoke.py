@@ -12,7 +12,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. build the CUDA kernels from ``implicit_tpu_torch/ops/csrc`` (nvcc, one
    process per library, all at once, always from the sources), and print
    ptxas's registers and spills of every ``cg_full``, ``weighted_matvec``,
-   ``cg_update`` and ``pcg64_uniform`` instantiation, which must not spill;
+   ``cg_update``, ``pcg64_uniform`` and ``topk_select`` instantiation, which
+   must not spill;
 2. each kernel against its plain PyTorch version on the card, in float32,
    bfloat16 and int8 (per-row scales), at the fit's own class shapes, with
    times and the least time the card could take (``bound``); the same bar
@@ -39,7 +40,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    (``ops/pcg64.py``, ``csrc/pcg64_uniform.cu``) at the fit cells' tables
    (358,868 x 128, 138,493 x 256, float32): numpy's draw times 0.01 bit
    for bit at the first, the generator left where numpy leaves it, and ms
-   over 100 launches beside numpy's host draw and upload, which it replaces;
+   over 100 launches beside numpy's host draw and upload, which it replaces.
+   The top-k selection (``ops/topk.py:select_topk``, ``csrc/topk_select.cu``)
+   at the bulk serving request (1024 x 292,385, k=10), 64 users and one, with
+   49 liked items a row excluded: the plain version's ids and scores (the
+   bar must reject the plain version without the exclusions), and ms beside
+   its bytes bound, the plain version and ``torch.topk`` alone;
 3. the ingest at the last.fm-360k shape (360k users x 160k items, 17.5M
    nnz): ``pack_pair_on_device``'s device pack against its host pack, as
    the f=128 float32 fit packs, on the pow2 and fine grids, every tensor
@@ -263,6 +269,13 @@ WIDE_CASES = {"f512_short": (512, "bfloat16"), "f512_long": (512, "bfloat16"),
 # the starting-factor draw's cases, (n, F) float32: the fit cells' user
 # tables; "shape" is also checked bit for bit against numpy's draw
 DRAW_CASES = {"shape": (358868, 128), "ml20m_user_table": (138493, 256)}
+
+# the top-k selection's cases, (Q, n, k): the bulk serving cell's request
+# ("shape"), an online batch and a single user, over last.fm's catalog; each
+# row excludes TOPK_LIKED liked items, about last.fm's mean
+TOPK_CASES = {"shape": (1024, 292385, 10), "batch_64": (64, 292385, 10),
+              "single": (1, 292385, 10)}
+TOPK_LIKED = 49
 
 # the card's peaks for bound_ms (H100 SXM data sheet, dense, at 700 W): HBM,
 # float32 on the CUDA cores, and the tensor cores in TF32 and bfloat16
@@ -781,6 +794,70 @@ def phase_draw(device):
             row.update(ms=res["ms"], plain_ms=res["host_route_ms"], bound_ms=res["bound_ms"],
                        bound_by="bytes", max_abs_err=0.0)
         row[which] = res
+        torch.cuda.empty_cache()
+    return row
+
+
+def phase_topk(device):
+    """The top-k selection kernel (``ops/topk.py:select_topk``,
+    ``csrc/topk_select.cu``) at ``TOPK_CASES`` on N(0, 0.1^2) scores with
+    ``TOPK_LIKED`` exclusions a row, its 4 best scores among them: the
+    plain version's values and ids (no ties at these scores), which the bar
+    must tell from the plain version without the exclusions; ms over
+    ``REPS`` selections (and from a CUDA graph), the bound (the score
+    block's bytes read once over 3.35 TB/s), the plain version (the scatter
+    and ``torch.topk``) and ``torch.topk`` alone (``library_ms``), as a row
+    of the kernels line."""
+    import torch
+
+    from implicit_tpu_torch.ops import topk
+
+    row = {"name": "topk_select", "route": "cuda",
+           "source": "implicit_tpu_torch/ops/csrc/topk_select.cu",
+           "replaces": "none: torch.topk and the liked scatter (the JAX package's lax.top_k)"}
+    for which, (Q, n, k) in TOPK_CASES.items():
+        tag = f"topk_select {Q} x {n} k={k}"
+        gen = torch.Generator(device=device).manual_seed(8400000001 + Q)
+        scores = torch.randn((Q, n), generator=gen, device=device) * 0.1
+        # each row's 4 best scores among its liked items, as a fitted model's
+        rng = np.random.default_rng(Q)
+        best = torch.topk(scores, 4, dim=1)[1].cpu().numpy()
+        liked = [np.unique(np.concatenate([rng.choice(n, TOPK_LIKED - 4, replace=False), b]))
+                 for b in best]
+        excl = topk._upload_exclusions(np.cumsum([0] + [len(r) for r in liked]),
+                                       np.concatenate(liked), device)
+        before = topk.LAUNCHES["topk_select"]
+        got = topk.select_topk(scores, k, excl)
+        launches = topk.LAUNCHES["topk_select"] - before
+        want = topk.select_topk_plain(scores.clone(), k, excl)
+        wrong = topk.select_topk_plain(scores.clone(), k)
+        res = {"shape_Qnk": [Q, n, k], "launches_a_selection": launches,
+               "segments": topk._segments(Q, n, device)}
+        res["ids_differing"] = int((got[1] != want[1]).sum())
+        res["max_abs_err"] = float((got[0] - want[0]).abs().max())
+        wrong_ids = int((got[1] != wrong[1]).sum())
+        if res["ids_differing"] or res["max_abs_err"]:
+            raise AssertionError(f"{tag}: {res['ids_differing']} ids differ from the plain "
+                                 f"version, scores by {res['max_abs_err']}")
+        if not wrong_ids:
+            raise AssertionError(f"{tag}: the check does not tell missing exclusions apart")
+        plain_scores = scores.clone()
+        res["ms"] = cuda_ms(lambda: topk.select_topk(scores, k, excl), REPS)
+        res["graph_ms"] = cuda_graph_ms(lambda: topk.select_topk(scores, k, excl), REPS)
+        res["plain_ms"] = cuda_ms(lambda: topk.select_topk_plain(plain_scores, k, excl), 10)
+        res["library_ms"] = cuda_ms(lambda: torch.topk(scores, k, dim=1), 10)
+        res["bound_ms"] = Q * n * 4 / PEAK_BYTES_PER_S * 1e3
+        say(2, f"{tag}: the plain version's ids and scores ({wrong_ids} ids differ without "
+               f"the exclusions); {launches} launch(es), {res['segments']} segment(s) a row; "
+               f"kernel {res['ms']:.4f} ms (graph {res['graph_ms']:.4f}), plain "
+               f"{res['plain_ms']:.4f}, torch.topk {res['library_ms']:.4f}; bound "
+               f"{res['bound_ms']:.4f} ms by bytes ({Q * n * 4 / 1e6:.1f} MB), "
+               f"{100 * res['bound_ms'] / res['graph_ms']:.1f}% of it")
+        if which == "shape":
+            row.update(ms=res["ms"], plain_ms=res["plain_ms"], library_ms=res["library_ms"],
+                       bound_ms=res["bound_ms"], bound_by="bytes", max_abs_err=0.0)
+        row[which] = res
+        del scores, plain_scores, got, want, wrong, excl
         torch.cuda.empty_cache()
     return row
 
@@ -3549,6 +3626,7 @@ PTXAS_KERNELS = {
                         "wmv_sum_slices": ()},
     "cg_update": {"cg_update_kernel": ("NP",), "yty_split_kernel": ()},
     "pcg64_uniform": {"pcg64_uniform_kernel": ("storage",)},
+    "topk_select": {"topk_select_kernel": ("K",)},
 }
 
 
@@ -3591,7 +3669,7 @@ def main():
            f"python {sys.version.split()[0]}")
     device = torch.device("cuda", 0)
 
-    from implicit_tpu_torch.ops import _build
+    from implicit_tpu_torch.ops import _build, topk
 
     t0 = time.perf_counter()
     for name in _build.SIGNATURES:  # build from the checkout's sources, every run
@@ -3612,8 +3690,11 @@ def main():
 
     kernels = phase_kernels(device)
     draw = phase_draw(device)
+    selection = phase_topk(device)
     plays = lastfm_plays()
+    selects = topk.LAUNCHES["topk_select"]
     launches, f32_factors, phase3 = phase_main_path(device, plays)
+    selection["launches"] = topk.LAUNCHES["topk_select"] - selects  # phase 3's serving
     phase_quality(device)
     phase_quality(device, gather_quant=True, dtype=np.float16)
     sgd = phase_sgd(device, plays)
@@ -3626,7 +3707,7 @@ def main():
     phase_bpr_variants(device, plays, sgd)
 
     draw["launches"] = launches["pcg64_uniform"]  # phase 3's and phase 9's fits
-    print(json.dumps({"kernels": kernel_rows(kernels, launches) + [draw]}))
+    print(json.dumps({"kernels": kernel_rows(kernels, launches) + [draw, selection]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,6 +57,9 @@ SIGNATURES = {
     # (state_hi, state_lo, inc_hi, inc_lo, n, buffered, kept, out, storage, blocks, stream)
     "pcg64_uniform": {"pcg64_uniform": [_U64, _U64, _U64, _U64, ctypes.c_longlong, _I,
                                         ctypes.c_uint32, _P, _I, _I, _P]},
+    # (scores, in_ids, rows, n, k, segs, excl_ptr, excl_ids, out_vals, out_ids, stream)
+    "topk_select": {"topk_select": [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _P,
+                                    _P, _P, _P, _P]},
 }
 
 _libs = {}

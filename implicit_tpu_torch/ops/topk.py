@@ -5,12 +5,21 @@ The counterpart of ``implicit_tpu/ops/topk.py``:
     scores = queries @ items.T        (float32 GEMM)
     scores /= item_norms              (optional)
     scores[filtered] = -FLT_MAX
-    torch.topk(scores, k)
+    top k of each row
 
 Filtered entries get ``-FLT_MAX`` (not -inf), so they can still round out
 results when fewer than k candidates survive; if k exceeds the number of
 items, the tail pads with id -1 / score -FLT_MAX. Queries run in chunks
 whose score matrix fits a memory budget.
+
+The selection is :func:`select_topk`: on CUDA, for k up to
+:data:`MAX_SELECT_K`, the kernel ``csrc/topk_select.cu`` (notes at its
+head), which reads the score block once and applies each query's
+exclusions (its liked items) while it selects; else its plain version
+:func:`select_topk_plain`, a scatter of -FLT_MAX and ``torch.topk``. The
+exclusions travel as a per-query CSR of int32 item ids, sorted within each
+row (:func:`_upload_exclusions`). The kernel orders ties by the lower id;
+``torch.topk`` promises no order among them.
 
 The entry points share that core:
 
@@ -26,14 +35,13 @@ The entry points share that core:
 
 With ``mesh=`` (a ``parallel.Mesh``) the item table is sharded on its rows
 over the mesh (:func:`shard_items_for_topk`): each shard scores and selects
-on its own device, and one ``torch.topk`` merges the D·k candidates on the
-mesh's first device (:func:`_topk_core_sharded`); a streamed block is cut
-the same way (:func:`topk_streaming`).
+on its own device, and one :func:`select_topk` merges the D·k candidates on
+the mesh's first device (:func:`_topk_core_sharded`); a streamed block is
+cut the same way (:func:`topk_streaming`).
 
 The JAX package pads shapes to buckets (``_pad_dim``) to keep its jit cache
 warm; nothing is compiled here, so the port scores the exact shapes. Only
-the order among exactly tied scores can differ from the JAX package's
-(``torch.topk`` promises no order among ties).
+the order among exactly tied scores can differ from the JAX package's.
 """
 
 import numpy as np
@@ -41,8 +49,21 @@ import torch
 
 from .. import tracing
 from .._device import full_f32_matmul, on_device, resolve_device
+from . import _build
 
 NEG_MAX = -float(np.finfo(np.float32).max)
+
+# the largest k the selection kernel takes; a larger k goes to torch.topk
+MAX_SELECT_K = 64
+# the tracing counter launches.topk_select; topk.library_selects counts the
+# selections left to torch.topk
+LAUNCHES = tracing.register("launches", {"topk_select": 0})
+
+# the kernel's segments: a block streams at least _MIN_SEGMENT elements of a
+# row, and a launch aims at _BLOCKS_PER_SM blocks an SM
+_MIN_SEGMENT = 4096
+_BLOCKS_PER_SM = 4
+_SMS = {}
 
 # score-matrix elements per query chunk on the CPU (256 MB of float32)
 _MAX_SCORE_ELEMENTS_CPU = 1 << 26
@@ -93,16 +114,136 @@ def _upload(array, device):
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def _topk_core(items, queries, norms, qf_rows, qf_cols, filter_items, k, n_valid=None):
+def _upload_exclusions(indptr, ids, device):
+    """The exclusions of a query chunk, a CSR of item ids (``indptr`` (Q +
+    1,) from 0, ``ids`` sorted within each row, every id in [-1, 2^31)), as
+    ``(indptr, ids)`` int32 tensors on ``device``: one upload of both."""
+    host = np.concatenate([indptr, ids]).astype(np.int32)
+    t = _upload(host, device)
+    return t[:len(indptr)], t[len(indptr):]
+
+
+def _csr_exclusions(sub, n_items, device):
+    """:func:`_upload_exclusions` of a CSR slice of liked items: its rows
+    sorted where scipy says they are not, ids clipped to [-1, n_items] (out
+    of range stays out of range), or None if it holds no entry."""
+    if sub.nnz == 0:
+        return None
+    if not sub.has_sorted_indices:
+        sub = sub.sorted_indices()
+    return _upload_exclusions(sub.indptr - sub.indptr[0],
+                              np.clip(sub.indices, -1, n_items), device)
+
+
+def _pair_exclusions(rows, cols, q_rows, device):
+    """:func:`_upload_exclusions` of (query row, item id) pairs sorted by
+    row and, within a row, by id; None if there are none."""
+    if len(rows) == 0:
+        return None
+    return _upload_exclusions(np.searchsorted(rows, np.arange(q_rows + 1)), cols, device)
+
+
+def _kernel_selects(device, k):
+    """Whether :func:`select_topk` launches the kernel: CUDA, k up to
+    :data:`MAX_SELECT_K`."""
+    return device.type == "cuda" and k <= MAX_SELECT_K
+
+
+def _segments(q_rows, n, device):
+    """Segments a row for the kernel: as many as keep the launch within
+    ``_BLOCKS_PER_SM`` blocks an SM (one wave), each segment at least
+    ``_MIN_SEGMENT`` long (and so longer than any k)."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(_BLOCKS_PER_SM * _SMS[device] // max(q_rows, 1), n // _MIN_SEGMENT))
+
+
+def _launch_select(scores, in_ids, k, segs, exclusions, vals, ids):
+    """One launch of ``topk_select`` on the current stream of the scores'
+    device; raises on a launch error, else counts it."""
+    lib = _build.load("topk_select")["topk_select"]
+    index = scores.device.index
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    indptr, excl = exclusions if exclusions is not None else (None, None)
+    with torch.cuda.device(index):
+        rc = lib.topk_select(scores.data_ptr(), ptr(in_ids), scores.shape[0], scores.shape[1],
+                             k, segs, ptr(indptr), ptr(excl), vals.data_ptr(), ids.data_ptr(),
+                             torch.cuda.current_stream(index).cuda_stream)
+    _build.check(lib, rc, "topk_select launch")
+    LAUNCHES["topk_select"] += 1
+
+
+def select_topk(scores, k, exclusions=None, ids=None):
+    """The top ``k`` of each row of the (Q, n) float32 ``scores``: (values
+    (Q, k) in descending order, ids (Q, k) int64), as ``torch.topk``.
+
+    ``exclusions`` is ``(indptr, ids)`` (int32 tensors on the scores'
+    device, :func:`_upload_exclusions`) or None: each listed id of a row
+    scores exactly -FLT_MAX and is still offered; ids outside [0, n) never
+    match. ``ids`` (Q, n) int64 (in [0, 2^31)), or None, gives each column's
+    id in place of its position (candidate sets merged). Where
+    :func:`_kernel_selects`, one launch of the kernel (two where a row is
+    cut into segments, the second merging their candidates); else
+    :func:`select_topk_plain`. ``k`` is at most n.
+    """
+    if not _kernel_selects(scores.device, k):
+        return select_topk_plain(scores, k, exclusions, ids)
+    q_rows, n = scores.shape
+    if scores.dtype != torch.float32 or not 1 <= k <= n:
+        raise ValueError(f"select_topk takes float32 scores and 1 <= k <= n, got "
+                         f"{scores.dtype}, k={k}, n={n}")
+    if ids is not None and (ids.dtype != torch.int64 or ids.shape != scores.shape):
+        raise ValueError("ids must be int64 of the scores' shape")
+    if exclusions is not None and (
+            exclusions[0].numel() != q_rows + 1
+            or any(t.dtype != torch.int32 or t.device != scores.device or not t.is_contiguous()
+                   for t in exclusions)):
+        raise ValueError("exclusions must be contiguous int32 tensors on the scores' device, "
+                         "with an indptr of Q + 1 entries")
+    scores = scores.contiguous()
+    ids = None if ids is None else ids.contiguous()
+    vals = torch.empty((q_rows, k), dtype=torch.float32, device=scores.device)
+    out = torch.empty((q_rows, k), dtype=torch.int64, device=scores.device)
+    if q_rows == 0:
+        return vals, out
+    segs = _segments(q_rows, n, scores.device)
+    if segs == 1:
+        _launch_select(scores, ids, k, 1, exclusions, vals, out)
+        return vals, out
+    cand_vals = torch.empty((q_rows, segs * k), dtype=torch.float32, device=scores.device)
+    cand_ids = torch.empty((q_rows, segs * k), dtype=torch.int64, device=scores.device)
+    _launch_select(scores, ids, k, segs, exclusions, cand_vals, cand_ids)
+    _launch_select(cand_vals, cand_ids, k, 1, None, vals, out)
+    return vals, out
+
+
+def select_topk_plain(scores, k, exclusions=None, ids=None):
+    """:func:`select_topk` in plain PyTorch: the exclusions written into
+    ``scores`` (in place) as -FLT_MAX, then ``torch.topk``. Counts
+    ``topk.library_selects``."""
+    tracing.count("topk.library_selects")
+    if exclusions is not None:
+        indptr, cols = exclusions
+        rows = torch.repeat_interleave(
+            torch.arange(scores.shape[0], device=scores.device), indptr.diff(),
+            output_size=cols.numel())
+        keep = (cols >= 0) & (cols < scores.shape[1])
+        scores.index_put_((rows[keep], cols[keep].long()),
+                          torch.full((), NEG_MAX, dtype=scores.dtype, device=scores.device))
+    vals, pos = torch.topk(scores, k, dim=1)
+    return vals, pos if ids is None else torch.gather(ids, 1, pos)
+
+
+def _topk_core(items, queries, norms, exclusions, filter_items, k, n_valid=None):
     """Scores one query chunk and selects its top k.
 
     ``items`` (N, F) float32; ``queries`` (Q, F), already rounded to the
-    table's serving dtype; ``norms`` (N,) or None; ``qf_rows``/``qf_cols``
-    the (query row, item id) pairs to exclude, or None; ``filter_items``
-    item ids to exclude for every query, or None. Ids outside [0, N) are
-    ignored. Rows from ``n_valid`` on are padding and score -inf, below
-    every filtered item's -FLT_MAX, so none is ever selected ahead of a real
-    item. Returns (scores, ids) of shape (Q, k).
+    table's serving dtype; ``norms`` (N,) or None; ``exclusions`` the
+    chunk's per-query item ids to exclude (:func:`select_topk`), or None;
+    ``filter_items`` item ids to exclude for every query, or None. Ids
+    outside [0, N) are ignored. Rows from ``n_valid`` on are padding and
+    score -inf, below every filtered item's -FLT_MAX, so none is ever
+    selected ahead of a real item. Returns (scores, ids) of shape (Q, k).
     """
     with full_f32_matmul():  # the JAX package's HIGHEST-precision scores
         scores = queries.float() @ items.T
@@ -112,9 +253,7 @@ def _topk_core(items, queries, norms, qf_rows, qf_cols, filter_items, k, n_valid
         scores[:, n_valid:] = -float("inf")
     if filter_items is not None:
         scores[:, filter_items] = NEG_MAX
-    if qf_rows is not None:
-        scores[qf_rows, qf_cols] = NEG_MAX
-    return torch.topk(scores, k, dim=1)
+    return select_topk(scores, k, exclusions)
 
 
 def shard_items_for_topk(items, item_norms, mesh, dtype=None):
@@ -151,16 +290,17 @@ def _local_ids(ids, lo, hi):
     return np.flatnonzero((ids >= lo) & (ids < hi))
 
 
-def _topk_core_sharded(shards, queries, norms, qf, filter_items, k, n_items):
+def _topk_core_sharded(shards, queries, norms, exclusions, filter_items, k, n_items):
     """The item-sharded top-k of one query chunk (the mesh's serving core).
 
     Shard ``s`` holds rows ``s * n_local`` on; it scores the queries on its
     own device, masks its padding rows (global id >= ``n_items``), applies
-    its own filters (``qf[s]``: (rows, local cols) or None; ``filter_items
-    [s]``: local ids or None) and selects its top ``min(k, n_local)``. The
-    D·k candidates are then copied to the queries' device and merged by one
-    ``torch.topk``. Shards past the catalog are skipped. Returns (scores,
-    global ids), (Q, k).
+    its own filters (``exclusions[s]``: the per-query local ids of
+    :func:`select_topk`, or None; ``filter_items[s]``: local ids or None)
+    and selects its top ``min(k, n_local)``. The D·k candidates are then
+    copied to the queries' device and merged by one :func:`select_topk`.
+    Shards past the catalog are skipped. Returns (scores, global ids), (Q,
+    k).
     """
     n_local = shards[0].shape[0]
     merge = queries.device
@@ -171,10 +311,10 @@ def _topk_core_sharded(shards, queries, norms, qf, filter_items, k, n_items):
         if real <= 0:
             continue
         d = shard.device
-        rows, cols = qf[s] if qf is not None and qf[s] is not None else (None, None)
         with on_device(d):
             v, i = _topk_core(_scoring_table(shard), queries.to(d),
-                              None if norms is None else norms[s], rows, cols,
+                              None if norms is None else norms[s],
+                              None if exclusions is None else exclusions[s],
                               None if filter_items is None else filter_items[s],
                               min(k, n_local), n_valid=real)
         vals.append(v.to(merge))
@@ -183,11 +323,11 @@ def _topk_core_sharded(shards, queries, norms, qf, filter_items, k, n_items):
 
 
 def _merge(vals, ids, k):
-    """Merges candidate sets (Q, k_i) (lists of scores and ids) into the top k."""
+    """Merges candidate sets (Q, k_i) (lists of scores and int64 ids) into
+    the top k (:func:`select_topk`; ties to the lower id)."""
     if len(vals) == 1 and vals[0].shape[1] == k:
         return vals[0], ids[0]
-    top, pos = torch.topk(torch.cat(vals, dim=1), k, dim=1)
-    return top, torch.gather(torch.cat(ids, dim=1), 1, pos)
+    return select_topk(torch.cat(vals, dim=1), k, ids=torch.cat(ids, dim=1))
 
 
 def _pad_results(ids, scores, k):
@@ -332,28 +472,24 @@ def topk_async(items, query, k, item_norms=None, filter_query_items=None, filter
                         np.empty((q_rows, k_eff), dtype=np.float32), k)
     for start in range(0, q_rows, chunk):
         stop = min(start + chunk, q_rows)
-        rows = cols = None
-        if filter_query_items is not None:
-            sub = filter_query_items[start:stop]
-            cols = np.asarray(sub.indices, dtype=np.int64)
-            rows = np.repeat(np.arange(stop - start, dtype=np.int64), np.diff(sub.indptr))
-            keep = (cols >= 0) & (cols < n_items)
-            rows, cols = rows[keep], cols[keep]
+        sub = None if filter_query_items is None else filter_query_items[start:stop]
         if shards is None:
-            qf_rows = qf_cols = None
-            if rows is not None:
-                qf_rows, qf_cols = _upload(rows, device), _upload(cols, device)
-            vals, idx = _topk_core(table, query[start:stop], norms, qf_rows, qf_cols, fi,
-                                   k_eff)
+            excl = None if sub is None else _csr_exclusions(sub, n_items, device)
+            vals, idx = _topk_core(table, query[start:stop], norms, excl, fi, k_eff)
         else:
-            qf = None
-            if rows is not None:
-                qf = []
+            excl = None
+            if sub is not None:
+                if not sub.has_sorted_indices:
+                    sub = sub.sorted_indices()
+                cols = np.asarray(sub.indices, dtype=np.int64)
+                rows = np.repeat(np.arange(stop - start, dtype=np.int64), np.diff(sub.indptr))
+                keep = (cols >= 0) & (cols < n_items)
+                rows, cols = rows[keep], cols[keep]
+                excl = []
                 for k0, d in zip(range(0, n_local * mesh.size, n_local), mesh.devices):
                     at = _local_ids(cols, k0, k0 + n_local)
-                    qf.append((_upload(rows[at], d), _upload(cols[at] - k0, d))
-                              if len(at) else None)
-            vals, idx = _topk_core_sharded(shards, query[start:stop], norms, qf, fi, k_eff,
+                    excl.append(_pair_exclusions(rows[at], cols[at] - k0, stop - start, d))
+            vals, idx = _topk_core_sharded(shards, query[start:stop], norms, excl, fi, k_eff,
                                            n_items)
         idx = idx.to(torch.int32)
         if device.type == "cuda":
@@ -476,7 +612,7 @@ def topk_streaming(items, query, k, item_norms=None, filter_query_items=None,
     on the device: ``items`` is a numpy array or anything sliceable to one
     (a memmap), and its row blocks upload one after the other
     (:class:`_BlockStream`) while a running (Q, k) candidate set merges
-    per block through ``torch.topk``. Results equal :func:`topk` on the
+    per block through :func:`select_topk`. Results equal :func:`topk` on the
     resident table up to the order of exact ties: the same filters and
     -FLT_MAX sentinels, and the same padding past the item count.
 
@@ -533,7 +669,8 @@ def topk_streaming(items, query, k, item_norms=None, filter_query_items=None,
     qf_row = qf_col = None
     if filter_query_items is not None:
         coo = filter_query_items.tocoo()
-        # by column: each slice's pairs are one run
+        # by column: each slice's pairs are one run (and stay sorted by
+        # column within a row when a block's pairs are sorted by row)
         order = np.argsort(coo.col, kind="stable")
         qf_row = coo.row[order].astype(np.int64)
         qf_col = coo.col[order].astype(np.int64)
@@ -567,14 +704,13 @@ def topk_streaming(items, query, k, item_norms=None, filter_query_items=None,
                 blk_rows, blk_cols = blk_rows[by_row], blk_cols[by_row]
 
             for ci, (c0, c1) in enumerate(chunks):
-                qf_rows = qf_cols = None
+                excl = None
                 if blk_rows is not None:
                     at0, at1 = np.searchsorted(blk_rows, [c0, c1])
-                    if at1 > at0:
-                        qf_rows = _upload(blk_rows[at0:at1] - c0, d)
-                        qf_cols = _upload(blk_cols[at0:at1], d)
+                    excl = _pair_exclusions(blk_rows[at0:at1] - c0, blk_cols[at0:at1],
+                                            c1 - c0, d)
                 with on_device(d):
-                    vals, idx = _topk_core(block, queries[d][c0:c1], norms, qf_rows, qf_cols,
+                    vals, idx = _topk_core(block, queries[d][c0:c1], norms, excl,
                                            fi_dev, min(k_eff, hi - lo))
                 cands[ci][0].append(vals.to(device))
                 cands[ci][1].append((idx + lo).to(device))

@@ -21,7 +21,7 @@ Two training layouts exist:
 
 Serving (:func:`sharded_topk`, and ``recommend`` / ``similar_*`` on meshed
 models) shards the item axis: each shard scores and selects, and one
-``torch.topk`` merges the candidates.
+``ops.topk.select_topk`` merges the candidates.
 """
 
 from . import als_sharded

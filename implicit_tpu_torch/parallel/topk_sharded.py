@@ -2,8 +2,9 @@
 
 The counterpart of ``implicit_tpu/parallel/topk_sharded.py``: each shard
 scores its row slice of the items and selects its top k, the D·k candidates
-per query are copied to one device, and a final ``torch.topk`` merges them,
-so a query moves D·k values instead of the whole catalog's scores.
+per query are copied to one device, and a final ``ops.topk.select_topk``
+merges them, so a query moves D·k values instead of the whole catalog's
+scores.
 """
 
 import torch

@@ -35,8 +35,10 @@ device. ``recommend`` (a root) holds ``validate``, ``user rows``,
 Counters always count, a plain integer add each: ``device.mem_queries``
 (one per ``torch.cuda.mem_get_info`` call), ``init.device_draws`` and
 ``init.host_draws`` (one per starting factor table drawn on the card,
-``ops.pcg64``, or by numpy on the host) and the groups that modules
-register, such as ``launches.<entry>`` (``ops.cg_kernels.LAUNCHES``).
+``ops.pcg64``, or by numpy on the host), ``topk.library_selects`` (one per
+selection left to ``torch.topk``, ``ops.topk.select_topk_plain``) and the
+groups that modules register, such as ``launches.<entry>``
+(``ops.cg_kernels.LAUNCHES``, ``ops.topk.LAUNCHES``).
 
 :func:`timed_step` is the set-up steps' block: a span, and the debug line of
 its seconds.
@@ -58,8 +60,8 @@ log = logging.getLogger("implicit_tpu_torch")
 MAX_SPANS = 50_000
 
 _COUNTS = {"device.mem_queries": 0, "init.device_draws": 0, "init.host_draws": 0,
-           "tracing.dropped": 0}
-_GROUPS = {}
+           "topk.library_selects": 0, "tracing.dropped": 0}
+_GROUPS = []  # (prefix, counts)
 _spans = collections.deque()
 _ids = itertools.count(1)
 _lock = threading.Lock()
@@ -73,15 +75,16 @@ def count(name, n=1):
 
 def register(prefix, counts):
     """Registers the dict ``counts`` (name -> int), which its module keeps
-    counting, as the counters ``<prefix>.<name>``; returns it."""
-    _GROUPS[prefix] = counts
+    counting, as the counters ``<prefix>.<name>``; returns it. Several
+    modules may register under one prefix."""
+    _GROUPS.append((prefix, counts))
     return counts
 
 
 def counters():
     """Every counter's value, by name."""
     out = dict(_COUNTS)
-    for prefix, group in _GROUPS.items():
+    for prefix, group in _GROUPS:
         for name, value in group.items():
             out[f"{prefix}.{name}"] = value
     return out

@@ -124,3 +124,119 @@ def test_query_chunking_gives_the_same_result(monkeypatch):
                          filter_query_items=liked)
     np.testing.assert_array_equal(whole[0], chunked[0])
     np.testing.assert_array_equal(whole[1], chunked[1])
+
+
+# -- the selection: per-query exclusions as a CSR, the kernel's routing --------
+
+def _scatter_path(items, query, k, liked):
+    """The scatter the port applied before its selection took a CSR: every
+    liked (row, id) pair inside the catalog set to -FLT_MAX, then
+    ``torch.topk``."""
+    scores = torch.as_tensor(query) @ torch.as_tensor(items).T
+    coo = liked.tocoo()
+    keep = coo.col < items.shape[0]
+    scores[coo.row[keep], coo.col[keep]] = float(NEG_MAX)
+    vals, ids = torch.topk(scores, k, dim=1)
+    return ids.to(torch.int32).numpy(), vals.numpy()
+
+
+def _awkward_liked(seed, q, n_items):
+    """Liked items with rows in no order, ids past the catalog and, in row
+    1, every item of the catalog."""
+    rng = np.random.default_rng(seed)
+    rows, data = [], []
+    indptr = [0]
+    for r in range(q):
+        ids = rng.choice(n_items + 20, size=rng.integers(0, 40), replace=False)
+        if r == 1:
+            ids = np.arange(n_items)
+        ids = rng.permutation(ids)
+        rows.append(ids)
+        indptr.append(indptr[-1] + len(ids))
+    indices = np.concatenate(rows).astype(np.int32)
+    liked = csr_matrix((np.ones(len(indices), dtype=np.float32), indices, indptr),
+                       shape=(q, n_items + 20))
+    assert not liked.has_sorted_indices
+    return liked
+
+
+def _paths():
+    from implicit_tpu_torch.parallel import create_mesh
+
+    return {
+        "resident": lambda it, q, k, liked: ttopk.topk(torch.as_tensor(it), q, k,
+                                                       filter_query_items=liked),
+        "mesh": lambda it, q, k, liked: ttopk.topk(it, q, k, filter_query_items=liked,
+                                                   mesh=create_mesh(3, "cpu")),
+        "streaming": lambda it, q, k, liked: ttopk.topk_streaming(
+            it, q, k, filter_query_items=liked, block_rows=128, device="cpu"),
+    }
+
+
+@pytest.mark.parametrize("k", [1, 10, 32, 64, 65])
+@pytest.mark.parametrize("path", ["resident", "mesh", "streaming"])
+def test_csr_exclusions_match_the_scatter_path(path, k):
+    from test_torch_topk_streaming import assert_same_topk
+
+    from implicit_tpu_torch import tracing
+
+    items, query, _, _ = _case(20 + k, n_items=300, q=12)
+    liked = _awkward_liked(k, 12, 300)
+    before = tracing.counters()["topk.library_selects"]
+    ids, scores = _paths()[path](items, query, k, liked)
+    assert tracing.counters()["topk.library_selects"] > before  # the CPU: torch.topk
+    assert_same_topk((ids, scores), _scatter_path(items, query, k, liked))
+    liked_dense = liked.toarray()[:, :300] > 0
+    for r in range(12):
+        assert len(set(ids[r])) == k
+        assert (liked_dense[r, ids[r]] == (scores[r] == NEG_MAX)).all(), r
+    assert (scores[1] == NEG_MAX).all()
+
+
+@pytest.mark.parametrize("k", [1, 10, 32, 64, 65])
+def test_plain_selection_is_the_scatter_and_torch_topk(k):
+    """``select_topk_plain`` with a CSR (unsorted rows, ids outside the row)
+    writes -FLT_MAX where the scatter did and selects with ``torch.topk``:
+    the same bits; merged candidates keep their own ids."""
+    rng = np.random.default_rng(k)
+    scores = torch.as_tensor(rng.standard_normal((6, 90), dtype=np.float32))
+    liked = _awkward_liked(k + 1, 6, 70)
+    sub = liked.sorted_indices()
+    excl = (torch.as_tensor(sub.indptr, dtype=torch.int32),
+            torch.as_tensor(np.clip(sub.indices, -1, 90), dtype=torch.int32))
+    got = ttopk.select_topk(scores.clone(), k, excl)
+    want = scores.clone()
+    coo = liked.tocoo()
+    keep = coo.col < 90
+    want[coo.row[keep], coo.col[keep]] = float(NEG_MAX)
+    want = torch.topk(want, k, dim=1)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    cand_ids = torch.as_tensor(rng.permutation(1000)[:90]).repeat(6, 1)
+    vals, ids = ttopk.select_topk(scores.clone(), k, ids=cand_ids)
+    assert torch.equal(ids, torch.gather(cand_ids, 1, torch.topk(scores, k, dim=1)[1]))
+
+
+@pytest.mark.parametrize("k", [1, 10, 32, 64, 65, 256])
+def test_the_kernel_takes_cuda_selections_up_to_its_limit(k):
+    assert ttopk._kernel_selects(torch.device("cuda", 0), k) == (k <= ttopk.MAX_SELECT_K)
+    assert not ttopk._kernel_selects(torch.device("cpu"), k)
+
+
+@pytest.mark.parametrize("q_rows,n", [(1024, 292_385), (64, 292_385), (3, 292_385),
+                                      (1, 292_385), (1, 33), (1, 4096), (1, 8191),
+                                      (1, 8192), (5, 1_000_003), (1, 64 * 4096 + 1)])
+def test_segments_fill_the_card_and_hold_k(monkeypatch, q_rows, n):
+    """The kernel's segments a row (132 SMs faked): one at a bulk batch,
+    several for a small one, each at least the kernel's largest k long, as
+    the C entry point demands."""
+    cuda = torch.device("cuda", 0)
+    monkeypatch.setitem(ttopk._SMS, cuda, 132)
+    segs = ttopk._segments(q_rows, n, cuda)
+    seg_len = -(-n // segs)
+    assert segs >= 1 and seg_len >= min(n, ttopk.MAX_SELECT_K)
+    assert n - (segs - 1) * seg_len >= min(n, ttopk.MAX_SELECT_K)
+    assert q_rows * segs <= ttopk._BLOCKS_PER_SM * 132 or segs == 1
+    if q_rows == 1024:
+        assert segs == 1
+    if q_rows == 1 and n >= 2 * ttopk._MIN_SEGMENT:
+        assert segs > 1

@@ -15,7 +15,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from implicit_tpu_torch import tracing
 from implicit_tpu_torch.als import AlternatingLeastSquares
 from implicit_tpu_torch.datasets.synthetic import generate_synthetic
-from implicit_tpu_torch.ops import cg_kernels
+from implicit_tpu_torch.ops import cg_kernels, topk
 from implicit_tpu_torch.ops.topk import _score_budget_elements
 
 torch.set_num_threads(2)
@@ -159,22 +159,27 @@ def test_pipelined_batches_each_have_a_root():
 
 
 def test_launches_are_the_kernels_own_counts(monkeypatch):
-    """``launches.<entry>`` reads ``cg_kernels.LAUNCHES`` itself, reset and
-    all, and a span counts the launches inside it."""
-    for name in cg_kernels.LAUNCHES:
-        monkeypatch.setitem(cg_kernels.LAUNCHES, name, cg_kernels.LAUNCHES[name])
+    """``launches.<entry>`` reads ``cg_kernels.LAUNCHES`` and the top-k's
+    ``topk.LAUNCHES`` themselves, reset and all, and a span counts the
+    launches inside it."""
+    for group in (cg_kernels.LAUNCHES, topk.LAUNCHES):
+        for name in group:
+            monkeypatch.setitem(group, name, group[name])
     cg_kernels.reset_launches()
+    topk.LAUNCHES["topk_select"] = 0
     counts = tracing.counters()
     assert {k for k in counts if k.startswith("launches.")} == {
-        f"launches.{k}" for k in cg_kernels.LAUNCHES}
-    assert not any(counts[f"launches.{k}"] for k in cg_kernels.LAUNCHES)
+        f"launches.{k}" for k in (*cg_kernels.LAUNCHES, "topk_select")}
+    assert not any(counts[k] for k in counts if k.startswith("launches."))
     with _profiled():
         with tracing.span("solves"):
             cg_kernels.LAUNCHES["cg_full_f32"] += 3
             cg_kernels.LAUNCHES["cg_update"] += 1
+            topk.LAUNCHES["topk_select"] += 2
     assert tracing.counters()["launches.cg_full_f32"] == 3
     span, = tracing.spans()
-    assert span["counts"] == {"launches.cg_full_f32": 3, "launches.cg_update": 1}
+    assert span["counts"] == {"launches.cg_full_f32": 3, "launches.cg_update": 1,
+                              "launches.topk_select": 2}
 
 
 def test_each_free_memory_query_is_counted(monkeypatch):
