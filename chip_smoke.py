@@ -47,16 +47,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    bar must reject the plain version without the exclusions), and ms beside
    its bytes bound, the plain version and ``torch.topk`` alone;
 3. the ingest at the last.fm-360k shape (360k users x 160k items, 17.5M
-   nnz): ``pack_pair_on_device``'s device pack against its host pack, as
-   the f=128 float32 fit packs, on the pow2 and fine grids, every tensor
-   equal and one altered entry rejected, with both routes' times; then the
+   nnz): ``pack_pair_on_device``'s pack on the card against the same pack
+   on the CPU, as the f=128 float32 fit packs, on the pow2 and fine grids,
+   every tensor equal and one altered entry rejected, with both times; then the
    main paths, each with the launch counters set to 0 just before it and
    read just after, which must show every routed chunk and both starting
    tables drawn on the card (``init.device_draws``), and each fit's
    set-up (wall minus the iterations) split by step from the port's debug
    lines: ``AlternatingLeastSquares.fit`` at that shape at factors=128 in
-   float32 (and again with ``ingest="host"``, which must give the same
-   factors bit for bit), bfloat16 and bfloat16
+   float32, bfloat16 and bfloat16
    with ``gather_quant=True``; at factors=256 with ``gather_quant="auto"``
    (int8 on the item side only) and ``False``; the wide fits, factors=512
    bfloat16 and factors=320 float32 (2 iterations), whose every class solves
@@ -125,9 +124,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    where they do not, one line says so;
 9. the meshed paths (``implicit_tpu_torch.parallel``; the kernels launched
    per shard) on ``virtual_mesh(4, cuda:0)``, four shards on the one card,
-   at phase 3's shape: ``RowShardedBuckets``' device route against its host
-   route (both sides, every tensor of every shard, an altered entry
-   rejected, both routes' seconds); the sharded loss on phase 3's f=128
+   at phase 3's shape: ``RowShardedBuckets`` on the card against the same
+   layout on a CPU mesh of four shards (both sides, every tensor of every
+   shard, an altered entry rejected, both seconds); the sharded loss on phase 3's f=128
    float32 factors against the single device's; the f=128 float32 meshed
    fit (3 iterations) against phase 3's (factors, loss, recommend ids of
    1024 users; the same bar must reject a fit whose last shard skipped its
@@ -939,8 +938,8 @@ def device_draws():
     return tracing.counters()["init.device_draws"]
 
 
-def fit_path(tag, plays, device, factors, dtype, gather_quant, iterations=3, ingest="auto",
-             phase=3, **factory_kwargs):
+def fit_path(tag, plays, device, factors, dtype, gather_quant, iterations=3, phase=3,
+             **factory_kwargs):
     """One fit at the full shape, its launches read against the chunks
     routed (and ``pcg64_uniform`` against the two starting tables, which a
     fresh fit from an int seed draws on the card), and its set-up (fit wall
@@ -950,7 +949,7 @@ def fit_path(tag, plays, device, factors, dtype, gather_quant, iterations=3, ing
     from implicit_tpu_torch.ops import cg_kernels
 
     model = AlternatingLeastSquares(factors=factors, iterations=iterations, random_state=0,
-                                    dtype=dtype, gather_quant=gather_quant, ingest=ingest,
+                                    dtype=dtype, gather_quant=gather_quant,
                                     device=device, **factory_kwargs)
     sides = model._gather_quant_sides(*plays.shape)
     want = expected_launches(plays, factors, model._compute_dtype, iterations, sides,
@@ -973,7 +972,7 @@ def fit_path(tag, plays, device, factors, dtype, gather_quant, iterations=3, ing
                f"s/iter {[round(t, 4) for t in times]} (fit wall {wall:.3f} s, "
                f"set-up {setup:.3f} s)")
     say(phase, f"fit {tag}: set-up {setup:.4f} s = fit wall {wall:.4f} - iterations "
-               f"{sum(times):.4f}; split (ingest={ingest}, s): "
+               f"{sum(times):.4f}; split (s): "
                + ", ".join(f"{step} {secs:.4f}" for step, secs in split.steps)
                + f"; steps sum {sum(secs for _, secs in split.steps):.4f}")
     say(phase, f"fit {tag}: launches {nonzero(launches)}, chunks routed {nonzero(want)}")
@@ -984,16 +983,20 @@ def fit_path(tag, plays, device, factors, dtype, gather_quant, iterations=3, ing
 
 def pack_differences(got, want, names=("user", "item")):
     """What differs between two (user, item) DeviceBuckets pairs (or two
-    lists of them, one per ``names``): plans, empty rows, and every class
-    tensor (``torch.equal`` and the dtype)."""
+    lists of them, one per ``names``), on any two devices: plans, empty
+    rows, and every class tensor (``torch.equal`` on the CPU, and the
+    dtype)."""
     import torch
+
+    def same(a, b):
+        return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
 
     out = []
     for side, g, w in zip(names, got, want):
         if (g.shape, g.nnz, g.sentinel) != (w.shape, w.nnz, w.sentinel):
             out.append(f"{side} shape, nnz or sentinel")
         if (g.empty_rows is None) != (w.empty_rows is None) or (
-                g.empty_rows is not None and not torch.equal(g.empty_rows, w.empty_rows)):
+                g.empty_rows is not None and not same(g.empty_rows, w.empty_rows)):
             out.append(f"{side} empty rows")
         if [(c.L, c.C, c.n_chunks, c.n_valid) for c in g.classes] != \
                 [(c.L, c.C, c.n_chunks, c.n_valid) for c in w.classes]:
@@ -1001,48 +1004,46 @@ def pack_differences(got, want, names=("user", "item")):
             continue
         for gc, wc in zip(g.classes, w.classes):
             for name in ("rows", "indices", "data", "lengths"):
-                a, b = getattr(gc, name), getattr(wc, name)
-                if a.dtype != b.dtype or not torch.equal(a, b):
+                if not same(getattr(gc, name), getattr(wc, name)):
                     out.append(f"{side} L={gc.L} C={gc.C} {name}")
     return out
 
 
 def ingest_check(plays, device):
-    """The device pack against the host pack at the full shape, as the
-    f=128 float32 fit packs (``pack_pair_on_device``), on the pow2 and fine
-    grids: every tensor equal, with each route's time (the device route
-    twice, its first call first); a copy of the device pack with one entry
-    of the item side's longest class altered must be told apart."""
+    """The pack on the card against the same pack on the CPU at the full
+    shape, as the f=128 float32 fit packs (``pack_pair_on_device``), on the
+    pow2 and fine grids: every tensor equal, with each device's time (the
+    card twice, its first call first); a copy of the card's pack with one
+    entry of the item side's longest class altered must be told apart."""
     import torch
 
     from implicit_tpu_torch.sparse import als_chunk_target, pack_pair_on_device
 
     Cui = plays.astype(np.float32)
     kw = dict(target_entries=als_chunk_target(128, "float32"), max_chunk_rows=65536,
-              data_dtype=np.float32, device=device)
+              data_dtype=np.float32)
     for grid in ("pow2", "fine"):
         secs, packs = {}, {}
-        for mode in ("device", "host", "device"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            packs[mode] = pack_pair_on_device(Cui, grid=grid, mode=mode, **kw)
-            torch.cuda.synchronize()
-            secs.setdefault(mode, []).append(time.perf_counter() - t0)
-        differ = pack_differences(packs["device"], packs["host"])
+        for where in (device, "cpu", device):
+            name = "card" if where == device else "cpu"
+            packs[name], t = synced(lambda: pack_pair_on_device(Cui, grid=grid, device=where,
+                                                                **kw))
+            secs.setdefault(name, []).append(t)
+        differ = pack_differences(packs["card"], packs["cpu"])
         if differ:
-            raise AssertionError(f"ingest {grid}: the device pack differs from the host pack: "
+            raise AssertionError(f"ingest {grid}: the card's pack differs from the CPU's: "
                                  f"{differ[:8]}")
-        head = packs["device"][1].classes[-1]
+        head = packs["card"][1].classes[-1]
         head.data[0, 0, 0] += 1.0
-        altered = pack_differences(packs["device"], packs["host"])
+        altered = pack_differences(packs["card"], packs["cpu"])
         if altered != [f"item L={head.L} C={head.C} data"]:
             raise AssertionError(f"ingest {grid}: one altered entry gave {altered}")
-        entries = [sum(c.n_chunks * c.C * c.L for c in side.classes) for side in packs["host"]]
-        say(3, f"ingest {grid} grid: device pack == host pack, every tensor of "
-               f"{sum(len(side.classes) for side in packs['host'])} classes (user/item padded "
+        entries = [sum(c.n_chunks * c.C * c.L for c in side.classes) for side in packs["cpu"]]
+        say(3, f"ingest {grid} grid: card pack == CPU pack, every tensor of "
+               f"{sum(len(side.classes) for side in packs['cpu'])} classes (user/item padded "
                f"entries {entries[0]}/{entries[1]}); an altered entry is rejected ({altered[0]}); "
-               f"device {', '.join(f'{t:.4f}' for t in secs['device'])} s, host "
-               f"{secs['host'][0]:.4f} s")
+               f"card {', '.join(f'{t:.4f}' for t in secs['card'])} s, CPU "
+               f"{secs['cpu'][0]:.4f} s")
         del packs, head
         torch.cuda.empty_cache()
 
@@ -1157,16 +1158,6 @@ def phase_main_path(device, plays):
     f32, _, f32_times, launches = fit_path("f=128 float32", plays, device, 128, np.float32,
                                            False)
     add(launches)
-    # the same fit packed on the host: the packed tensors, so the factors, the same
-    host, _, _, launches = fit_path("f=128 float32 ingest=host", plays, device, 128,
-                                    np.float32, False, ingest="host")
-    add(launches)
-    if not all(np.array_equal(a, b) for a, b in ((f32.user_factors, host.user_factors),
-                                                 (f32.item_factors, host.item_factors))):
-        raise AssertionError('fit f=128 float32: ingest="host" factors differ from the '
-                             'device-packed fit\'s')
-    say(3, 'fit f=128 float32: ingest="host" gives the device-packed fit\'s factors, bit for bit')
-    del host
     _, _, _, launches = fit_path("f=128 bfloat16", plays, device, 128, np.float16, False)
     add(launches)
     quant, _, _, launches = fit_path("f=128 bfloat16 int8", plays, device, 128, np.float16, True)
@@ -1428,8 +1419,7 @@ def injected_inputs():
                  for _, idx, _, n in host_classes for _ in n]
     bpr.drop = max(range(len(host_classes)), key=lambda c: host_classes[c][0].shape[0])
 
-    pack = pack_pair_on_device(plays, target_entries=1 << 14, grid="pow2", mode="host",
-                               device="cpu")[0]
+    pack = pack_pair_on_device(plays, target_entries=1 << 14, grid="pow2", device="cpu")[0]
     ci = max(range(len(pack.classes)), key=lambda c: pack.classes[c].n_chunks)
     cls = pack.classes[ci]
     lmf = SimpleNamespace(ci=ci, L=cls.L, C=cls.C, n_chunks=cls.n_chunks, neg_prop=3, lr=1.0,
@@ -1460,7 +1450,7 @@ def lmf_injected_update(plays, lmf, case, dev, drop=False):
     from implicit_tpu_torch.models import lmf as lmf_mod
     from implicit_tpu_torch.sparse import pack_pair_on_device
 
-    c = pack_pair_on_device(plays, target_entries=1 << 14, grid="pow2", mode="host",
+    c = pack_pair_on_device(plays, target_entries=1 << 14, grid="pow2",
                             device=dev)[0].classes[lmf.ci]
     dev_draws = [torch.as_tensor(d, device=dev) for d in case.draws]
     if drop:  # what _lmf_class_update reads of a class, less its first chunk
@@ -2646,14 +2636,15 @@ def fit_against(tag, model, want, plays, user_sh, mesh, bar, resident):
 
 
 def mesh_pack_check(plays, device, mesh):
-    """Step 1: ``RowShardedBuckets`` through the device route against the
-    host route, both sides, as the f=128 float32 meshed fit packs (pow2): every
-    tensor of every shard ``torch.equal`` with the same dtype, an altered
-    entry of the last shard rejected; both routes' seconds. Returns the
-    user side's device pack (the loss checks read it)."""
+    """Step 1: ``RowShardedBuckets`` on the card's mesh against the same
+    layout on a CPU mesh of as many shards, both sides, as the f=128 float32
+    meshed fit packs (pow2): every tensor of every shard ``torch.equal``
+    with the same dtype, an altered entry of the last shard rejected; both
+    seconds. Returns the user side's pack on the card (the loss checks read
+    it)."""
     import torch
 
-    from implicit_tpu_torch.parallel import RowShardedBuckets
+    from implicit_tpu_torch.parallel import RowShardedBuckets, create_mesh
     from implicit_tpu_torch.sparse import als_chunk_target
 
     Cui = plays.astype(np.float32)
@@ -2661,14 +2652,15 @@ def mesh_pack_check(plays, device, mesh):
     kw = dict(target_entries=als_chunk_target(128, "float32"), max_chunk_rows=65536,
               grid="pow2")
     names = [f"shard {k}" for k in range(mesh.size)]
+    cpu_mesh = create_mesh(mesh.size, "cpu")
     keep = None
     for side, csr in (("user", Cui), ("item", Ciu)):
-        dev, dev_s = synced(lambda: RowShardedBuckets(csr, mesh, pack="device", **kw))
-        host, host_s = synced(lambda: RowShardedBuckets(csr, mesh, pack="host", **kw))
+        dev, dev_s = synced(lambda: RowShardedBuckets(csr, mesh, **kw))
+        host, host_s = synced(lambda: RowShardedBuckets(csr, cpu_mesh, **kw))
         differ = pack_differences(dev.shards, host.shards, names)
         if differ:
-            raise AssertionError(f"sharded pack {side}: device route differs from the host "
-                                 f"route: {differ[:8]}")
+            raise AssertionError(f"sharded pack {side}: the card's layout differs from the "
+                                 f"CPU's: {differ[:8]}")
         cls = dev.shards[-1].classes[-1]
         saved = cls.data.clone()
         cls.data[0, 0, 0] += 1.0
@@ -2677,10 +2669,10 @@ def mesh_pack_check(plays, device, mesh):
         if altered != [f"shard {mesh.size - 1} L={cls.L} C={cls.C} data"]:
             raise AssertionError(f"sharded pack {side}: one altered entry gave {altered}")
         chunks = sum(c.n_chunks for sh in dev.shards for c in sh.classes)
-        say(9, f"sharded pack {side} side (D={mesh.size}, pow2): device route == host route, "
+        say(9, f"sharded pack {side} side (D={mesh.size}, pow2): card == CPU, "
                f"every tensor of {len(dev.shards[0].classes)} classes x {mesh.size} shards "
-               f"({chunks} chunks); an altered entry is rejected ({altered[0]}); device "
-               f"{dev_s:.4f} s, host {host_s:.4f} s" + (f"; transpose {t_s:.4f} s"
+               f"({chunks} chunks); an altered entry is rejected ({altered[0]}); card "
+               f"{dev_s:.4f} s, CPU {host_s:.4f} s" + (f"; transpose {t_s:.4f} s"
                                                          if side == "item" else ""))
         if side == "user":
             keep = dev

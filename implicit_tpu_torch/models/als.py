@@ -24,7 +24,7 @@ from ..ops import als as als_ops
 from ..ops import pcg64
 from ..parallel import als_sharded
 from ..parallel.mesh import check_mesh_arg
-from ..sparse import BucketedCSR, als_chunk_target, pack_pair_on_device
+from ..sparse import als_chunk_target, pack_on_device, pack_pair_on_device
 from ..tracing import timed_step
 from ..utils import check_csr, check_random_state
 from .mf_base import MatrixFactorizationBase
@@ -96,12 +96,8 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
     grid : {"auto", "pow2", "fine"}, optional
         Row-length bucketing grid; "auto" means "pow2".
     ingest : {"auto", "host", "device"}, optional
-        Where the interactions are packed into the solves' bucketed tensors
-        (:func:`~implicit_tpu_torch.sparse.pack_pair_on_device`): "device"
-        uploads the raw CSR arrays once and transposes and packs on the
-        device; "host" transposes and packs on the host and uploads the
-        padded tensors; "auto" is "device" on a CUDA device and "host" on
-        the CPU. The packed tensors, and so the fit, are the same either way.
+        Accepted for API parity; the port packs on the model's device
+        (:func:`~implicit_tpu_torch.sparse.pack_pair_on_device`).
     gather_quant : {False, True, "auto"}, optional
         Solve against an int8 per-row-scaled copy of the fixed-side factor
         table, dequantized inside the CUDA kernels (to bfloat16, as the JAX
@@ -213,71 +209,54 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
             fit_span.set(users=users, items=items, nnz=Cui.nnz)
             target = als_chunk_target(self.factors, self._compute_dtype)
             grid = "pow2" if self.grid == "auto" else self.grid
-            if not callback:
-                callback = self.fit_callback
             if self.mesh is not None:
-                return self._fit_sharded(Cui, random_state, target, grid, show_progress,
-                                         callback)
-            user_buckets, item_buckets = pack_pair_on_device(
-                Cui, target_entries=target, max_chunk_rows=65536, grid=grid,
-                data_dtype=solve_np, mode=self.ingest, device=self.device)
-            # user table first: the JAX package's stream
-            X = self._initial_factors(self.user_factors, users, random_state)
-            Y = self._initial_factors(self.item_factors, items, random_state)
+                step, loss_of, X, Y, devices, gather = self._set_up_sharded(
+                    Cui, random_state, target, grid)
+            else:
+                user_buckets, item_buckets = pack_pair_on_device(
+                    Cui, target_entries=target, max_chunk_rows=65536, grid=grid,
+                    data_dtype=solve_np, device=self.device)
+                # user table first: the JAX package's stream
+                X = self._initial_factors(self.user_factors, users, random_state)
+                Y = self._initial_factors(self.item_factors, items, random_state)
+                kw = dict(use_cg=self.use_cg, cg_steps=self.cg_steps,
+                          compute_dtype=self._compute_dtype,
+                          gather_quant=self._gather_quant_sides(users, items))
+
+                def step(X, Y):
+                    return als_ops.fit(X, Y, user_buckets, item_buckets, self.regularization,
+                                       1, **kw)
+
+                def loss_of(X, Y):
+                    return als_ops.calculate_loss_bucketed(user_buckets, X, Y,
+                                                           self.regularization)
+
+                devices, gather = [self.device], None
 
             self._item_norms = self._user_norms = None
             self._YtY = None
             self._XtX = None
-            loss = None
-
-            kw = dict(reg=self.regularization, use_cg=self.use_cg, cg_steps=self.cg_steps,
-                      compute_dtype=self._compute_dtype)
-            gq_user, gq_item = self._gather_quant_sides(users, items)
-
-            log.debug("Running %i ALS iterations", self.iterations)
-            with tqdm(total=self.iterations, disable=not show_progress) as progress:
-                for iteration in range(self.iterations):
-                    s = time.perf_counter()
-                    with tracing.span("iteration", self.device, iteration=iteration):
-                        X = als_ops.solve_side(X, Y, user_buckets, gather_quant=gq_user, **kw)
-                        Y = als_ops.solve_side(Y, X, item_buckets, gather_quant=gq_item, **kw)
-                        if ((callback or self.calculate_training_loss)
-                                and self.device.type == "cuda"):
-                            torch.cuda.synchronize(self.device)
-                    progress.update(1)
-
-                    if self.calculate_training_loss:
-                        loss = als_ops.calculate_loss_bucketed(
-                            user_buckets, X, Y, self.regularization)
-                        progress.set_postfix({"loss": loss})
-                        if not show_progress:
-                            log.info("loss %.4f", loss)
-
-                    if callback:
-                        callback(iteration, time.perf_counter() - s, loss)
-
-            with timed_step("copy back", self.device):
-                storage = _as_torch_dtype(self.dtype)
-                user_factors, item_factors = (T.to(storage).cpu().numpy() for T in (X, Y))
-            self.user_factors, self.item_factors = user_factors, item_factors
-
+            X, Y, loss = self._iterate(step, X, Y, devices, loss_of, show_progress,
+                                       callback or self.fit_callback)
+            X, Y = self._copy_back(X, Y, devices, gather)
             if self.calculate_training_loss:
                 log.info("Final training loss %.4f", loss)
-
             self._check_factors(X, Y)
 
-    def _fit_sharded(self, Cui, random_state, target, grid, show_progress, callback):
-        """The fit over the model's mesh, on the row-sharded layout
-        (``parallel.als_sharded``): the layout of both sides, the starting
-        factors (numpy's draws, as without a mesh) cut into the shards, the
-        iterations, and the shards gathered back in row order. Solves
-        float32 for a float64 model, as the JAX package's meshed fit."""
+    def _set_up_sharded(self, Cui, random_state, target, grid):
+        """The meshed fit's set-up, on the row-sharded layout
+        (``parallel.als_sharded``): the layout of both sides and the
+        starting factors (numpy's draws, as without a mesh) cut into the
+        shards. Returns what :meth:`_iterate` and :meth:`_copy_back` take:
+        the step, the loss, the shards of both tables, the mesh's distinct
+        devices and the gather of the shards into row order. Solves float32
+        for a float64 model, as the JAX package's meshed fit."""
         mesh = self._serving_mesh()
         devices, first = mesh.distinct(), mesh.devices[0]
         users, items = Cui.shape
         with timed_step("transpose", devices):
             Ciu = Cui.T.tocsr()
-        kw = dict(target_entries=target, max_chunk_rows=65536, grid=grid, pack=self.ingest)
+        kw = dict(target_entries=target, max_chunk_rows=65536, grid=grid)
         with timed_step("sharded pack user side", devices):
             user_sh = als_sharded.RowShardedBuckets(Cui, mesh, **kw)
         with timed_step("sharded pack item side", devices):
@@ -290,21 +269,35 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
             Ys = als_sharded.shard_rows(Y, mesh, item_sh.block)
         del X, Y
 
-        self._item_norms = self._user_norms = None
-        self._YtY = None
-        self._XtX = None
-        loss = None
         compute_dtype = "float32" if self._compute_dtype == "float64" else self._compute_dtype
         kw = dict(use_cg=self.use_cg, cg_steps=self.cg_steps, compute_dtype=compute_dtype,
                   gather_quant=self._gather_quant_sides(users, items))
 
-        log.debug("Running %i ALS iterations over %r", self.iterations, mesh)
+        def step(Xs, Ys):
+            return als_sharded.fit(Xs, Ys, user_sh, item_sh, mesh, self.regularization, 1,
+                                   **kw)
+
+        def loss_of(Xs, Ys):
+            return als_sharded.calculate_loss(user_sh, Xs, Ys, self.regularization, mesh)
+
+        def gather(Xs, Ys):
+            return (als_sharded.gather_rows(Xs, users, first),
+                    als_sharded.gather_rows(Ys, items, first))
+
+        return step, loss_of, Xs, Ys, devices, gather
+
+    def _iterate(self, step, X, Y, devices, loss_of, show_progress, callback):
+        """The fit's iterations, one ``step(X, Y) -> (X, Y)`` each, on one
+        device or over a mesh's ``devices``; returns X, Y and the last loss.
+        The CUDA devices are synchronized after an iteration only where the
+        callback or the training loss reads it."""
+        loss = None
+        log.debug("Running %i ALS iterations on %s", self.iterations, devices)
         with tqdm(total=self.iterations, disable=not show_progress) as progress:
             for iteration in range(self.iterations):
                 s = time.perf_counter()
                 with tracing.span("iteration", devices, iteration=iteration):
-                    Xs, Ys = als_sharded.fit(Xs, Ys, user_sh, item_sh, mesh, self.regularization,
-                                             1, **kw)
+                    X, Y = step(X, Y)
                     if callback or self.calculate_training_loss:
                         for d in devices:
                             if d.type == "cuda":
@@ -312,26 +305,25 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
                 progress.update(1)
 
                 if self.calculate_training_loss:
-                    loss = als_sharded.calculate_loss(user_sh, Xs, Ys, self.regularization,
-                                                      mesh)
+                    loss = loss_of(X, Y)
                     progress.set_postfix({"loss": loss})
                     if not show_progress:
                         log.info("loss %.4f", loss)
 
                 if callback:
                     callback(iteration, time.perf_counter() - s, loss)
+        return X, Y, loss
 
+    def _copy_back(self, X, Y, devices, gather=None):
+        """Copies the fitted tables to the host in the storage dtype, as the
+        model's factors; a meshed fit's shards are first gathered into row
+        order (``gather``). Returns the device tables."""
         with timed_step("copy back", devices):
-            X = als_sharded.gather_rows(Xs, users, first)
-            Y = als_sharded.gather_rows(Ys, items, first)
+            if gather is not None:
+                X, Y = gather(X, Y)
             storage = _as_torch_dtype(self.dtype)
-            user_factors, item_factors = (T.to(storage).cpu().numpy() for T in (X, Y))
-        self.user_factors, self.item_factors = user_factors, item_factors
-
-        if self.calculate_training_loss:
-            log.info("Final training loss %.4f", loss)
-
-        self._check_factors(X, Y)
+            self.user_factors, self.item_factors = (T.to(storage).cpu().numpy() for T in (X, Y))
+        return X, Y
 
     def _initial_factors(self, factors, n, random_state, device=None, solve=None):
         """The fit's starting (n, factors) table on ``device`` (default the
@@ -362,7 +354,7 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
 
     def _solve_rows(self, row_items, other_factors, gram):
         """Dense normal-equation solves for the rows of ``row_items``."""
-        buckets = BucketedCSR(_drop_stored_zeros(row_items)).to_device(self.device)
+        buckets = pack_on_device(_drop_stored_zeros(row_items), self.device)
         X = torch.zeros((row_items.shape[0], self.factors), dtype=torch.float32,
                         device=self.device)
         Y = torch.as_tensor(np.asarray(other_factors, dtype=np.float32), device=self.device)

@@ -55,7 +55,7 @@ from tqdm.auto import tqdm
 from .._device import full_f32_matmul
 from ..ops import membership
 from ..parallel.mesh import check_mesh_arg
-from ..sparse import BucketedCSR
+from ..sparse import pack_on_device
 from ..tracing import timed_step
 from ..utils import check_csr, check_random_state
 from .mf_base import MatrixFactorizationBase
@@ -340,7 +340,7 @@ def grouped_classes(user_items, device):
     invalid marker even where the matrix stores explicit zeros."""
     binary = user_items.copy()
     binary.data = np.ones(len(binary.data), dtype=np.float32)
-    buckets = BucketedCSR(binary, target_entries=1 << 16, max_chunk_rows=8192).to_device(device)
+    buckets = pack_on_device(binary, device, target_entries=1 << 16, max_chunk_rows=8192)
     return [(c.rows, c.indices.long(), c.data, c.n_valid) for c in buckets.classes]
 
 

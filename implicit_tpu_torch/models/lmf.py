@@ -315,9 +315,8 @@ class LogisticMatrixFactorization(MatrixFactorizationBase):
         device)``: n cards on CUDA (raising where fewer are visible), n
         virtual shards on the CPU. None (default) trains on ``device``.
     ingest : {"auto", "host", "device"}, optional
-        Where the interactions are packed into the bucketed tensors
-        (:func:`~implicit_tpu_torch.sparse.pack_pair_on_device`); "auto" is
-        "device" on a CUDA device and "host" on the CPU.
+        Accepted for API parity; the port packs on the model's device
+        (:func:`~implicit_tpu_torch.sparse.pack_pair_on_device`).
     device : str or torch.device, optional
         Where the epochs run and the serving tables live; default "cuda".
         Asking for CUDA where there is none raises.
@@ -404,8 +403,7 @@ class LogisticMatrixFactorization(MatrixFactorizationBase):
             return self._fit_sharded(user_items, item_users, rs, target, mesh, show_progress,
                                      callback)
         user_buckets, item_buckets = pack_pair_on_device(
-            user_items, item_users, target_entries=target, grid="pow2", mode=self.ingest,
-            device=dev)
+            user_items, item_users, target_entries=target, grid="pow2", device=dev)
         with timed_step("factor upload", dev):
             X = torch.tensor(self.user_factors, dtype=torch.float32, device=dev)
             Y = torch.tensor(self.item_factors, dtype=torch.float32, device=dev)

@@ -1,5 +1,5 @@
-"""ctypes binding for the host routines (``pack_ragged``, ``cuckoo_build``,
-``topk_rows``, ``knn_all_pairs``).
+"""ctypes binding for the host routines (``cuckoo_build``, ``topk_rows``,
+``knn_all_pairs``).
 
 The C++ source is the port's own ``native/packer.cpp`` (those routines of
 the JAX package's packer, copied so that the port reads nothing of that
@@ -9,6 +9,7 @@ package). It is built with g++ on first use, with the JAX package's flags
 source and the flags. Without a compiler, or without the source, the numpy
 paths build the same arrays (``knn_all_pairs`` returns None and its caller
 takes the blocked scipy product): this is host code, not a device kernel.
+The bucketed CSR is packed by torch ops (``sparse._pack_side``), not here.
 """
 
 import ctypes
@@ -62,13 +63,6 @@ def get_lib():
         if not os.path.exists(out):
             _build(_SRC, out)
         lib = ctypes.CDLL(out)
-        lib.pack_ragged.argtypes = [
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float),
-        ]
-        lib.pack_ragged.restype = None
         lib.cuckoo_build.argtypes = [
             ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint32),
             ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
@@ -97,48 +91,13 @@ def get_lib():
         lib.knn_max_threads.restype = ctypes.c_int32
         _lib = lib
     except (OSError, subprocess.CalledProcessError) as exc:
-        log.debug("host packer unavailable, packing with numpy: %s", exc)
+        log.debug("host library unavailable, taking the numpy paths: %s", exc)
         _lib = None
     return _lib
 
 
 def _ptr(arr, ctype):
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
-
-
-def pack_ragged(indptr, indices, data, row_sel, L, dtype=np.float32):
-    """Padded (len(row_sel), L) index/data blocks for the selected CSR rows."""
-    dtype = np.dtype(dtype)
-    count = len(row_sel)
-    lib = get_lib() if dtype == np.float32 else None  # the C packer is f32-only
-    if lib is not None:
-        indptr64 = np.ascontiguousarray(indptr, dtype=np.int64)
-        indices32 = np.ascontiguousarray(indices, dtype=np.int32)
-        data32 = np.ascontiguousarray(data, dtype=np.float32)
-        sel32 = np.ascontiguousarray(row_sel, dtype=np.int32)
-        out_idx = np.empty((count, L), dtype=np.int32)
-        out_dat = np.empty((count, L), dtype=np.float32)
-        lib.pack_ragged(
-            _ptr(indptr64, ctypes.c_int64), _ptr(indices32, ctypes.c_int32),
-            _ptr(data32, ctypes.c_float), _ptr(sel32, ctypes.c_int32),
-            count, L, _ptr(out_idx, ctypes.c_int32), _ptr(out_dat, ctypes.c_float),
-        )
-        return out_idx, out_dat
-
-    # vectorized ragged -> padded scatter
-    indptr = np.asarray(indptr, dtype=np.int64)
-    sel = np.asarray(row_sel)
-    lens = (indptr[sel + 1] - indptr[sel]).astype(np.int64)
-    out_idx = np.zeros((count, L), dtype=np.int32)
-    out_dat = np.zeros((count, L), dtype=dtype)
-    total = int(lens.sum())
-    if total:
-        within = np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(lens) - lens, lens)
-        src = np.repeat(indptr[sel], lens) + within
-        flat = np.repeat(np.arange(count, dtype=np.int64) * L, lens) + within
-        out_idx.reshape(-1)[flat] = np.asarray(indices, dtype=np.int32)[src]
-        out_dat.reshape(-1)[flat] = np.asarray(data, dtype=dtype)[src]
-    return out_idx, out_dat
 
 
 def topk_rows(indptr, indices, data, K, row_offset=0):

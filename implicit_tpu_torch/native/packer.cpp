@@ -1,19 +1,16 @@
-// Host routines of implicit_tpu_torch: ragged CSR rows into padded blocks,
-// the item-item similarity build and its per-row top-K, and the placement of
-// the BPR pair-membership table.
+// Host routines of implicit_tpu_torch: the item-item similarity build and
+// its per-row top-K, and the placement of the BPR pair-membership table.
 //
-// pack_ragged is the one host routine the port's bucketed CSR needs
-// (sparse.BucketedCSR); it packs exactly what the JAX package's packer
-// (implicit_tpu/native/packer.cpp) packs, and what the numpy path of
-// native/__init__.py packs. cuckoo_build is that packer's cuckoo placement,
-// copied, so both packages build the same table from the same pairs.
-// topk_rows, knn_max_threads and knn_all_pairs are that packer's KNN
-// routines, copied: built with the same flags, they give the JAX package's
-// similarity bit for bit. Built with g++ at first use and bound with ctypes.
+// cuckoo_build is the JAX package's packer's (implicit_tpu/native/packer.cpp)
+// cuckoo placement, copied, so both packages build the same table from the
+// same pairs. topk_rows, knn_max_threads and knn_all_pairs are that packer's
+// KNN routines, copied: built with the same flags, they give the JAX
+// package's similarity bit for bit. Built with g++ at first use and bound
+// with ctypes. The bucketed CSR is packed by torch ops, not here
+// (sparse._pack_side).
 
 #include <algorithm>
 #include <cstdint>
-#include <cstring>
 #include <functional>
 #include <utility>
 #include <vector>
@@ -23,24 +20,6 @@
 #endif
 
 extern "C" {
-
-// Fill padded index/data blocks for the selected rows.
-// out_idx/out_dat are (count, L); the tail of each row past its length is
-// zeroed here.
-void pack_ragged(const int64_t *indptr, const int32_t *indices,
-                 const float *data, const int32_t *row_sel, int64_t count,
-                 int64_t L, int32_t *out_idx, float *out_dat) {
-  for (int64_t r = 0; r < count; ++r) {
-    const int64_t start = indptr[row_sel[r]];
-    const int64_t len = indptr[row_sel[r] + 1] - start;
-    int32_t *oi = out_idx + r * L;
-    float *od = out_dat + r * L;
-    std::memcpy(oi, indices + start, sizeof(int32_t) * len);
-    std::memcpy(od, data + start, sizeof(float) * len);
-    std::memset(oi + len, 0, sizeof(int32_t) * (L - len));
-    std::memset(od + len, 0, sizeof(float) * (L - len));
-  }
-}
 
 // Per-row top-K by value over a CSR block; emits COO triples.
 // out_* arrays must hold rows*K entries; returns number written.

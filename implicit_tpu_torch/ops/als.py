@@ -386,11 +386,11 @@ def calculate_loss_bucketed(buckets, X, Y, reg):
 def calculate_loss(Cui, X, Y, regularization, num_threads=0, device="cuda"):
     """Loss entry point taking a scipy CSR and numpy factors."""
     from .._device import resolve_device
-    from ..sparse import BucketedCSR
+    from ..sparse import pack_on_device
 
     dev = resolve_device(device)
     return calculate_loss_bucketed(
-        BucketedCSR(Cui).to_device(dev),
+        pack_on_device(Cui, dev),
         torch.as_tensor(np.asarray(X, dtype=np.float32), device=dev),
         torch.as_tensor(np.asarray(Y, dtype=np.float32), device=dev), regularization,
     )

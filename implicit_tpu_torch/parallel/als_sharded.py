@@ -29,7 +29,7 @@ import torch
 from .._device import full_f32_matmul
 from .._device import on_device as _on
 from ..ops import als as als_ops
-from ..sparse import BucketClass, DeviceBuckets, _pack_side, chunk_pieces, length_class_grid
+from ..sparse import BucketClass, _pack_side, chunk_pieces, length_class_grid
 
 
 def _block(n_rows, D):
@@ -104,25 +104,15 @@ class RowShardedBuckets:
     none). The shards share every piece's chunk layout: a shard with fewer
     rows in a class pads its chunks with the sentinel.
 
-    ``pack`` picks where the padded entry tensors are gathered, as
-    ``sparse.pack_pair_on_device``'s ``mode``: "host" packs every shard's
-    classes with the port's ``native.pack_ragged`` and uploads them;
-    "device" uploads the raw CSR arrays once per distinct device
-    (the column ids permuted there) and gathers each shard's tensors with
-    torch ops; "auto" is "device" on a CUDA mesh and "host" on the CPU. The
-    tensors are the same either way. Positions are int64, so any nnz packs
-    on the device (the JAX package's device pack addresses in int32 and
-    packs on the host from 2**31 entries).
+    The host plans every shard's classes; the raw CSR arrays go up once per
+    distinct device (the column ids permuted there), and each shard's padded
+    entry tensors are gathered on its device by ``sparse._pack_side``.
+    Positions are int64, so any nnz packs (the JAX package's device pack
+    addresses in int32 and packs on the host from 2**31 entries).
     """
 
     def __init__(self, csr, mesh, target_entries=1 << 23, max_chunk_rows=65536, min_L=8,
-                 grid="pow2", data_dtype=np.float32, pack="auto"):
-        from .. import native
-
-        if pack not in ("auto", "host", "device"):
-            raise ValueError(f"pack must be 'auto', 'host' or 'device', got {pack!r}")
-        if pack == "auto":
-            pack = "device" if mesh.devices[0].type == "cuda" else "host"
+                 grid="pow2", data_dtype=np.float32):
         D = mesh.size
         n_rows, n_cols = csr.shape
         self.shape = tuple(int(s) for s in csr.shape)
@@ -152,14 +142,6 @@ class RowShardedBuckets:
                 first = csr_indices[indptr[sel]].astype(np.int64)
                 sels.append(sel[np.argsort((first % D) * col_block + first // D,
                                            kind="stable")])
-            packed = [None] * D
-            if pack == "host":
-                for k, sel in enumerate(sels):
-                    if len(sel):
-                        pi, pd = native.pack_ragged(indptr, csr_indices, csr_data,
-                                                    sel.astype(np.int32), L,
-                                                    dtype=csr_data.dtype)
-                        packed[k] = ((pi % D) * col_block + pi // D, pd)
             count = max(len(s) for s in sels)
             for start, stop, n_chunks, C in chunk_pieces(count, L, target_entries,
                                                          max_chunk_rows):
@@ -170,27 +152,14 @@ class RowShardedBuckets:
                     lens = np.zeros(padded, dtype=np.int32)
                     rows[:here] = sel[start:start + here] // D
                     lens[:here] = nnz_per_row[sel[start:start + here]]
-                    idx = dat = None
-                    if pack == "host":
-                        idx = np.zeros((padded, L), dtype=np.int32)
-                        dat = np.zeros((padded, L), dtype=csr_data.dtype)
-                        if here:
-                            pi, pd = packed[k]
-                            idx[:here] = pi[start:start + here]
-                            dat[:here] = pd[start:start + here]
-                        idx = idx.reshape(n_chunks, C, L)
-                        dat = dat.reshape(n_chunks, C, L)
                     rows = rows.reshape(n_chunks, C)
                     _check_prefix(rows, block)
-                    classes[k].append(BucketClass(L, C, rows, idx, dat,
+                    classes[k].append(BucketClass(L, C, rows, None, None,
                                                   lens.reshape(n_chunks, C)))
 
         plans = [_ShardPlan((block, D * col_block), int(nnz_per_row[k::D].sum()), block,
                             (empties[empties % D == k] // D).astype(np.int32), classes[k])
                  for k in range(D)]
-        if pack == "host":
-            self.shards = [DeviceBuckets(p, d) for p, d in zip(plans, mesh.devices)]
-            return
         flats = {}
         for d in mesh.distinct():
             cols = torch.as_tensor(csr_indices, device=d)

@@ -10,10 +10,11 @@ per fit into a few fixed-shape dense tensors:
   index 0 / value 0.
 
 Padding entries carry confidence 0 and contribute nothing to the solves.
-Two routes give the same tensors (:func:`pack_pair_on_device`): the host
-packs both sides (:class:`BucketedCSR`, then :meth:`BucketedCSR.to_device`
-uploads them), or the device packs them from one upload of the raw CSR
-arrays, deriving the transposed side itself.
+The host plans the classes (:class:`BucketedCSR`); one gather,
+:func:`_pack_side`, writes the padded entry tensors on whatever device it
+is given: the fit's device (:func:`pack_pair_on_device`, which also
+derives the transposed side there, and :func:`pack_on_device`), or the CPU
+for the host layout of the full :class:`BucketedCSR`.
 """
 
 import numpy as np
@@ -163,27 +164,12 @@ class BucketedCSR:
         return sum(c.n_chunks * c.C * c.L for c in self.classes)
 
     def fill(self, csr):
-        """Packs the padded entry tensors of a plan on the host (the native
-        packer); ``csr`` must be the matrix the plan was built from."""
-        from . import native
-
-        indptr = np.asarray(csr.indptr)
-        csr_indices = np.asarray(csr.indices, dtype=np.int32)
-        csr_data = np.asarray(csr.data, dtype=self.data_dtype)
-        for cls in self.classes:
-            rows = cls.rows.reshape(-1)
-            sel = rows[rows != self.sentinel]
-            packed_idx, packed_dat = native.pack_ragged(
-                indptr, csr_indices, csr_data, sel, cls.L, dtype=self.data_dtype)
-            if len(rows) > len(sel):
-                idx = np.zeros((len(rows), cls.L), dtype=np.int32)
-                dat = np.zeros((len(rows), cls.L), dtype=self.data_dtype)
-                idx[:len(sel)] = packed_idx
-                dat[:len(sel)] = packed_dat
-            else:
-                idx, dat = packed_idx, packed_dat
-            cls.indices = idx.reshape(cls.n_chunks, cls.C, cls.L)
-            cls.data = dat.reshape(cls.n_chunks, cls.C, cls.L)
+        """Packs the padded entry tensors of a plan as numpy arrays, through
+        :func:`_pack_side` on the CPU; ``csr`` must be the matrix the plan
+        was built from."""
+        packed = _pack_side(self, *_upload(csr, self.data_dtype, "cpu"), "cpu")
+        for cls, got in zip(self.classes, packed.classes):
+            cls.indices, cls.data = got.indices.numpy(), got.data.numpy()
         return self
 
     def to_device(self, device):
@@ -260,9 +246,9 @@ def _transpose(cols, data, indptr, n_cols):
 def _pack_side(plan, flat_indices, flat_data, indptr, device):
     """DeviceBuckets for one side from its flat CSR arrays on the device:
     each class's padded (n, C, L) entries gathered at ``indptr[row] + l``,
-    zero where ``l`` is past the row's length. Positions are int64, so any
-    nnz packs (the JAX package addresses in int32 and host-packs past
-    2**31 entries)."""
+    zero where ``l`` is past the row's length. The one code that writes the
+    padded entry tensors. Positions are int64, so any nnz packs (the JAX
+    package addresses in int32 and host-packs past 2**31 entries)."""
     buckets = DeviceBuckets(plan, device)
     for cls in buckets.classes:
         # sentinel rows (= n_rows) read indptr's last entry and mask out
@@ -276,45 +262,41 @@ def _pack_side(plan, flat_indices, flat_data, indptr, device):
     return buckets
 
 
-def pack_pair_on_device(Cui, Ciu=None, target_entries=1 << 23, max_chunk_rows=32768,
-                        grid="fine", data_dtype=np.float32, mode="auto", device="cuda"):
-    """Both training sides (user side of ``Cui``, item side of its
-    transpose) as DeviceBuckets on ``device``.
+def _upload(csr, data_dtype, device):
+    """``csr``'s flat column ids (int32), values (``data_dtype``) and indptr
+    (int64) as tensors on ``device``."""
+    return (torch.as_tensor(np.asarray(csr.indices, dtype=np.int32), device=device),
+            torch.as_tensor(np.asarray(csr.data, dtype=data_dtype), device=device),
+            torch.as_tensor(np.asarray(csr.indptr, dtype=np.int64), device=device))
 
-    ``mode="device"`` uploads ``Cui``'s raw ``indices``, ``data`` and
-    ``indptr`` once, derives the item side's flat arrays on the device (COO
-    row ids by ``repeat_interleave``, a stable sort by column) and gathers
-    every padded class tensor there; the host builds only the two plans, the
-    item plan from the item ``indptr`` and each item's first user, copied
-    back once. ``Ciu`` (``Cui.T.tocsr()``), if given, is read only for its
-    plan. ``mode="host"`` packs both sides on the host
-    (``BucketedCSR(...).to_device``), transposing ``Cui`` there when ``Ciu``
-    is None. ``"auto"`` takes the device pack on a CUDA device and the host
-    pack on the CPU: nothing is compiled here, so the JAX package's route
-    by compile warmth has no counterpart. The tensors are identical either
-    way, and a failure of the device route raises; it never packs on the
-    host instead.
+
+def pack_on_device(csr, device, **plan_kw):
+    """One side's DeviceBuckets on ``device``: the host plan of ``csr``
+    (:class:`BucketedCSR` keywords), its entries gathered on the device from
+    one upload of the raw CSR arrays."""
+    plan = BucketedCSR(csr, metadata_only=True, **plan_kw)
+    return _pack_side(plan, *_upload(csr, plan.data_dtype, device), device)
+
+
+def pack_pair_on_device(Cui, Ciu=None, target_entries=1 << 23, max_chunk_rows=32768,
+                        grid="fine", data_dtype=np.float32, device="cuda"):
+    """Both training sides (user side of ``Cui``, item side of its
+    transpose) as DeviceBuckets on ``device``, a CUDA device or the CPU.
+
+    ``Cui``'s raw ``indices``, ``data`` and ``indptr`` go up once; the item
+    side's flat arrays are derived on the device (COO row ids by
+    ``repeat_interleave``, a stable sort by column) and every padded class
+    tensor is gathered there (:func:`_pack_side`). The host builds only the
+    two plans, the item plan from the item ``indptr`` and each item's first
+    user, copied back once. ``Ciu`` (``Cui.T.tocsr()``), if given, is read
+    only for its plan. A failure of the pack raises.
     """
-    if mode not in ("auto", "host", "device"):
-        raise ValueError(f"mode must be 'auto', 'host' or 'device', got {mode!r}")
     device = resolve_device(device)
     kw = dict(target_entries=target_entries, max_chunk_rows=max_chunk_rows, grid=grid,
               data_dtype=data_dtype)
-    if mode == "host" or (mode == "auto" and device.type != "cuda"):
-        if Ciu is None:
-            with timed_step("transpose", device):
-                Ciu = Cui.T.tocsr()
-        out = []
-        for side, csr in (("user", Cui), ("item", Ciu)):
-            with timed_step(f"pack {side} side", device):
-                out.append(BucketedCSR(csr, **kw).to_device(device))
-        return tuple(out)
-
     n_rows, n_cols = Cui.shape
     with timed_step("upload", device):
-        cols = torch.as_tensor(np.asarray(Cui.indices, dtype=np.int32), device=device)
-        data = torch.as_tensor(np.asarray(Cui.data, dtype=data_dtype), device=device)
-        indptr = torch.as_tensor(np.asarray(Cui.indptr, dtype=np.int64), device=device)
+        cols, data, indptr = _upload(Cui, data_dtype, device)
     with timed_step("transpose", device):
         t_indices, t_data, t_indptr = _transpose(cols, data, indptr, n_cols)
     with timed_step("plan user side", device):

@@ -584,56 +584,69 @@ def _shuffled_rows(m, seed):
 
 
 @pytest.mark.parametrize("grid", ["pow2", "fine"])
+def _assert_same_pack(got, want):
+    """Two (user, item) DeviceBuckets pairs hold the same plans and every
+    class tensor bit for bit with its dtype; ``got`` lies on the card."""
+    for g, w in zip(got, want):
+        assert (g.shape, g.nnz, g.sentinel) == (w.shape, w.nnz, w.sentinel)
+        assert (g.empty_rows is None) == (w.empty_rows is None)
+        if w.empty_rows is not None:
+            assert torch.equal(g.empty_rows.cpu(), w.empty_rows.cpu())
+        assert [(c.L, c.C, c.n_chunks, c.n_valid) for c in g.classes] == \
+            [(c.L, c.C, c.n_chunks, c.n_valid) for c in w.classes]
+        for gc, wc in zip(g.classes, w.classes):
+            for name in ("rows", "indices", "data", "lengths"):
+                a, b = getattr(gc, name), getattr(wc, name)
+                assert a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()), name
+
+
+@pytest.mark.parametrize("grid", ["pow2", "fine"])
 def test_device_pack_on_cuda_matches_host_pack(cuda, monkeypatch, grid):
-    """The device pack on the card ("device", and "auto", which takes it on
-    CUDA) gives the host pack's tensors, each equal with its dtype, on rows
-    stored out of column order."""
+    """The pack on the card gives the same pack's tensors on the CPU, each
+    equal with its dtype, on rows stored out of column order; every side of
+    both goes through the one gather (``sparse._pack_side``)."""
     from implicit_tpu_torch import sparse
     from implicit_tpu_torch.datasets.synthetic import generate_synthetic
 
     plays = _shuffled_rows(generate_synthetic(2000, 700, 60000, seed=3).astype(np.float32), 1)
-    kw = dict(target_entries=1 << 14, max_chunk_rows=512, grid=grid, device=cuda)
+    kw = dict(target_entries=1 << 14, max_chunk_rows=512, grid=grid)
     calls = []
     real = sparse._pack_side
-    monkeypatch.setattr(sparse, "_pack_side", lambda *a: calls.append(1) or real(*a))
-    host = sparse.pack_pair_on_device(plays, mode="host", **kw)
-    assert calls == []
-    for mode in ("device", "auto"):
-        got = sparse.pack_pair_on_device(plays, mode=mode, **kw)
-        for g, h in zip(got, host):
-            assert (g.shape, g.nnz, g.sentinel) == (h.shape, h.nnz, h.sentinel)
-            assert (g.empty_rows is None) == (h.empty_rows is None)
-            if h.empty_rows is not None:
-                assert torch.equal(g.empty_rows, h.empty_rows)
-            assert [(c.L, c.C, c.n_chunks, c.n_valid) for c in g.classes] == \
-                [(c.L, c.C, c.n_chunks, c.n_valid) for c in h.classes]
-            for gc, hc in zip(g.classes, h.classes):
-                for name in ("rows", "indices", "data", "lengths"):
-                    a, b = getattr(gc, name), getattr(hc, name)
-                    assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b), name
-    assert len(calls) == 4
+    monkeypatch.setattr(sparse, "_pack_side", lambda *a: calls.append(a[-1]) or real(*a))
+    host = sparse.pack_pair_on_device(plays, device="cpu", **kw)
+    got = sparse.pack_pair_on_device(plays, device=cuda, **kw)
+    _assert_same_pack(got, host)
+    assert [torch.device(d).type for d in calls] == ["cpu", "cpu", "cuda", "cuda"]
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float16])
 def test_fit_with_device_ingest_equals_host_ingest_on_cuda(cuda, dtype):
-    """factors=32 fits that pack on the card and on the host give the same
-    bits, and a fit of no iterations returns numpy's start (float32 draw
-    times 0.01, cast to the storage dtype), scaled and cast on the card."""
+    """The pack of a factors=32 fit on the card equals the same pack on the
+    CPU, every tensor bit for bit; every ``ingest`` value fits the same
+    bits; a fit of no iterations returns numpy's start (float32 draw times
+    0.01, cast to the storage dtype), scaled and cast on the card."""
     from implicit_tpu_torch.als import AlternatingLeastSquares
     from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+    from implicit_tpu_torch.sparse import als_chunk_target, pack_pair_on_device
 
     plays = generate_synthetic(2000, 700, 60000, seed=3)
+    compute = "bfloat16" if dtype == np.float16 else "float32"
+    kw = dict(target_entries=als_chunk_target(32, compute), max_chunk_rows=65536, grid="pow2",
+              data_dtype=np.float32)
+    _assert_same_pack(pack_pair_on_device(plays.astype(np.float32), device=cuda, **kw),
+                      pack_pair_on_device(plays.astype(np.float32), device="cpu", **kw))
     fits = {}
-    for ingest, iterations in (("device", 2), ("host", 2), ("device", 0)):
+    for ingest, iterations in (("auto", 2), ("device", 2), ("host", 2), ("auto", 0)):
         model = AlternatingLeastSquares(factors=32, iterations=iterations, random_state=0,
                                         dtype=dtype, ingest=ingest, device=cuda)
         model.fit(plays, show_progress=False)
         fits[ingest, iterations] = (model.user_factors, model.item_factors)
-    for a, b in zip(fits["device", 2], fits["host", 2]):
-        assert a.dtype == dtype
-        np.testing.assert_array_equal(a, b)
+    for ingest in ("device", "host"):
+        for a, b in zip(fits[ingest, 2], fits["auto", 2]):
+            assert a.dtype == dtype
+            np.testing.assert_array_equal(a, b)
     rng = np.random.default_rng(0)
-    for got, n in zip(fits["device", 0], plays.shape):
+    for got, n in zip(fits["auto", 0], plays.shape):
         want = (rng.random((n, 32), dtype=np.float32) * 0.01).astype(dtype)
         np.testing.assert_array_equal(got, want)
 
@@ -721,7 +734,7 @@ def test_lmf_class_update_with_injected_draws_on_cuda_matches_cpu(cuda, route):
     arr = rng.permutation(plays.indices).astype(np.int64)
     out, draws = {}, None
     for name, dev in (("cpu", "cpu"), ("cuda", cuda)):
-        buckets = pack_pair_on_device(plays, target_entries=1 << 14, grid="pow2", mode="host",
+        buckets = pack_pair_on_device(plays, target_entries=1 << 14, grid="pow2",
                                       device=dev)[0]
         cls = max(buckets.classes, key=lambda c: c.n_chunks)
         neg_count = min(plays.shape[1], cls.L * neg_prop)
@@ -1184,7 +1197,8 @@ def test_fit_on_cuda_from_another_stream_takes_numpys_draw(cuda):
 
 def test_profiled_fit_on_cuda_draws_in_its_factor_draw_steps(cuda):
     """Under a profiler, a fit on the card has one ``factor draw`` step per
-    table and no ``factor init``; its ``fit`` span counts two device draws."""
+    table and no ``factor init``; its ``fit`` span counts two device draws
+    and holds its set-up steps, the iteration and the copy back in order."""
     from torch.profiler import ProfilerActivity, profile
 
     from implicit_tpu_torch import tracing
@@ -1209,3 +1223,6 @@ def test_profiled_fit_on_cuda_draws_in_its_factor_draw_steps(cuda):
     assert names.count("factor draw") == 2 and "factor init" not in names
     assert all(s["device_s"] is not None for s in steps if s["name"] == "factor draw")
     assert root["counts"]["init.device_draws"] == 2 and "init.host_draws" not in root["counts"]
+    assert [s["name"] for s in spans if s["parent"] == root["id"]] == [
+        "prepare", "upload", "transpose", "plan user side", "plan item side", "pack user side",
+        "pack item side", "factor draw", "factor draw", "iteration", "copy back"]

@@ -1,13 +1,12 @@
-"""The port's device pack against its host pack and the JAX package's device
-pack, and the fit's set-up on the device against the host's.
+"""The port's pack against the JAX package's host and device packs, and the
+fit's set-up.
 
 Packing is integer bookkeeping and copies of stored values, so every
-comparison is exact: the port's ``pack_pair_on_device(mode="device")`` (here
-on the CPU), its host ``BucketedCSR`` and the JAX package's
-``pack_pair_on_device(..., mode="device")`` on JAX's CPU give the same
-tensors, field for field. A fit that packs on the device equals one that
-packs on the host bit for bit, and both packages start a fit from the same
-factors.
+comparison is exact: the port's ``pack_pair_on_device`` (here on the CPU),
+the JAX package's host ``BucketedCSR`` and its ``pack_pair_on_device(...,
+mode="device")`` on JAX's CPU give the same tensors, field for field. Every
+``ingest`` value fits the same bits, and both packages start a fit from the
+same factors.
 """
 
 import logging
@@ -132,14 +131,14 @@ def test_device_pack_matches_host_pack_and_jax(case):
     Cui = make()
     Ciu = Cui.T.tocsr()
     kw = dict(KW, grid=grid, data_dtype=dtype)
-    got = tsparse.pack_pair_on_device(Cui, mode="device", device="cpu", **kw)
-    host = (tsparse.BucketedCSR(Cui, **kw).to_device("cpu"),
-            tsparse.BucketedCSR(Ciu, **kw).to_device("cpu"))
+    got = tsparse.pack_pair_on_device(Cui, device="cpu", **kw)
     with jax.enable_x64(dtype == np.float64):
+        host = (jsparse.BucketedCSR(Cui, **kw).to_device(),
+                jsparse.BucketedCSR(Ciu, **kw).to_device())
         want = jsparse.pack_pair_on_device(Cui, Ciu, mode="device", **kw)
     assert got[0].classes and got[1].classes
     for g, h, w in zip(got, host, want):
-        _assert_same(g, h)
+        _assert_same(g, h, exact_dtypes=False)
         _assert_same(g, w, exact_dtypes=False)
         assert g.classes[0].data.dtype == torch.from_numpy(np.zeros(0, dtype)).dtype
         assert g.classes[0].rows.dtype == torch.int64
@@ -149,7 +148,7 @@ def test_device_pack_matches_host_pack_and_jax(case):
 def test_device_pack_without_transpose_matches_given_transpose(case):
     make, grid, dtype = CASES[case]
     Cui = make()
-    kw = dict(KW, grid=grid, data_dtype=dtype, mode="device", device="cpu")
+    kw = dict(KW, grid=grid, data_dtype=dtype, device="cpu")
     derived = tsparse.pack_pair_on_device(Cui, None, **kw)
     given = tsparse.pack_pair_on_device(Cui, Cui.T.tocsr(), **kw)
     for a, b in zip(derived, given):
@@ -196,14 +195,8 @@ def test_plan_from_indptr_matches_host_transpose(case):
         np.testing.assert_array_equal(a.lengths, b.lengths)
 
 
-def test_unknown_mode_raises():
-    Cui = sp.csr_matrix(np.ones((3, 2), dtype=np.float32))
-    with pytest.raises(ValueError, match="mode must be"):
-        tsparse.pack_pair_on_device(Cui, mode="Auto", device="cpu")
-
-
 def test_device_route_failure_raises(monkeypatch):
-    """A failing device pack raises; it does not pack on the host instead."""
+    """A failing pack raises; nothing packs in its place."""
     def fail(*args):
         raise RuntimeError("device pack failed")
 
@@ -211,34 +204,24 @@ def test_device_route_failure_raises(monkeypatch):
     monkeypatch.setattr(tsparse, "_pack_side", fail)
     monkeypatch.setattr(tsparse.BucketedCSR, "fill", lambda self, csr: host.append(1))
     with pytest.raises(RuntimeError, match="device pack failed"):
-        tsparse.pack_pair_on_device(_random(30, 20, 0.2), mode="device", device="cpu")
+        tsparse.pack_pair_on_device(_random(30, 20, 0.2), device="cpu")
+    with pytest.raises(RuntimeError, match="device pack failed"):
+        tsparse.pack_on_device(_random(30, 20, 0.2), "cpu")
     assert host == []
 
 
-@pytest.mark.parametrize("mode", ["device", "host"])
-def test_empty_matrix(mode):
+@pytest.mark.parametrize("transpose", ["derived", "given"])
+def test_empty_matrix(transpose):
+    """No entries: no classes, every row and column empty, whether the item
+    plan comes from the device transpose or from the given one."""
     Cui = sp.csr_matrix((5, 4), dtype=np.float32)
-    user, item = tsparse.pack_pair_on_device(Cui, mode=mode, device="cpu")
+    Ciu = Cui.T.tocsr() if transpose == "given" else None
+    user, item = tsparse.pack_pair_on_device(Cui, Ciu, device="cpu")
     assert user.classes == [] and item.classes == []
     assert user.nnz == item.nnz == 0
     assert user.empty_rows.tolist() == list(range(5))
     assert item.empty_rows.tolist() == list(range(4))
     assert (user.shape, item.shape) == ((5, 4), (4, 5))
-
-
-def test_auto_on_the_cpu_takes_the_host_pack(monkeypatch):
-    """"auto" packs on the host on the CPU and on the device only where the
-    device is CUDA; the tensors are the same either way."""
-    Cui = _random(60, 40, 0.1)
-    calls = []
-    real = tsparse._pack_side
-    monkeypatch.setattr(tsparse, "_pack_side", lambda *a: calls.append(1) or real(*a))
-    auto = tsparse.pack_pair_on_device(Cui, mode="auto", device="cpu", **KW)
-    assert calls == []
-    device = tsparse.pack_pair_on_device(Cui, mode="device", device="cpu", **KW)
-    assert len(calls) == 2
-    for a, b in zip(auto, device):
-        _assert_same(a, b)
 
 
 def _fit(dtype, ingest, iterations=2, **kw):
@@ -250,11 +233,14 @@ def _fit(dtype, ingest, iterations=2, **kw):
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float16, np.float64])
 def test_fit_with_device_ingest_equals_host_ingest(dtype):
-    device, host = _fit(dtype, "device"), _fit(dtype, "host")
-    for a, b in ((device.user_factors, host.user_factors),
-                 (device.item_factors, host.item_factors)):
-        assert a.dtype == dtype
-        np.testing.assert_array_equal(a, b)
+    """``ingest`` is accepted for API parity and selects nothing: every
+    value fits the same bits."""
+    auto, device, host = (_fit(dtype, ingest) for ingest in ("auto", "device", "host"))
+    for model in (device, host):
+        for a, b in ((model.user_factors, auto.user_factors),
+                     (model.item_factors, auto.item_factors)):
+            assert a.dtype == dtype
+            np.testing.assert_array_equal(a, b)
 
 
 class _Stop(Exception):
@@ -304,20 +290,20 @@ def test_warm_refit_starts_from_the_set_factors():
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("ingest,steps", [
-    ("device", ["prepare", "upload", "transpose", "plan user side", "plan item side",
+SET_UP_STEPS = ["prepare", "upload", "transpose", "plan user side", "plan item side",
                 "pack user side", "pack item side", "factor draw", "factor init",
-                "factor draw", "factor init", "copy back"]),
-    ("host", ["prepare", "transpose", "pack user side", "pack item side", "factor draw",
-              "factor init", "factor draw", "factor init", "copy back"]),
-])
-def test_set_up_steps_are_logged(caplog, ingest, steps):
+                "factor draw", "factor init", "copy back"]
+
+
+@pytest.mark.parametrize("ingest", ["auto", "device", "host"])
+def test_set_up_steps_are_logged(caplog, ingest):
     """With debug logging on, every set-up step logs its seconds once, in
-    the order it runs (the split ``chip_smoke.py`` prints)."""
+    the order it runs (the split ``chip_smoke.py`` prints): the one pack,
+    whatever ``ingest`` says."""
     with caplog.at_level(logging.DEBUG, logger="implicit_tpu_torch"):
         _fit(np.float32, ingest, iterations=1)
     logged = [r.args for r in caplog.records if r.msg.startswith("fit set-up")]
-    assert [step for step, _ in logged] == steps
+    assert [step for step, _ in logged] == SET_UP_STEPS
     assert all(secs >= 0 for _, secs in logged)
 
 

@@ -116,7 +116,7 @@ def test_row_update_matches_jax(route):
 @pytest.mark.parametrize("route", ROUTES)
 def test_class_update_matches_jax(route):
     """A whole bucket class, several chunks and sentinel rows, with the pin:
-    both packages' host packs cut the same chunks."""
+    the JAX package's host pack and the port's pack cut the same chunks."""
     rng = np.random.default_rng(8)
     users, items, F, neg_prop = 70, 50, 10, 2
     dense = (rng.random((users, items)) < 0.25) * (rng.random((users, items)) * 4 + 1)
@@ -124,7 +124,7 @@ def test_class_update_matches_jax(route):
     iu = ui.T.tocsr()
     kw = dict(target_entries=128, grid="pow2")
     jb, _ = jax_pack_pair(ui, iu, mode="host", **kw)
-    pb, _ = pack_pair_on_device(ui, iu, mode="host", device="cpu", **kw)
+    pb, _ = pack_pair_on_device(ui, iu, device="cpu", **kw)
     X = rng.standard_normal((users, F)).astype(np.float32) * 0.3
     X[:, -2] = 1.0
     dss = (0.5 + rng.random((users, F))).astype(np.float32)

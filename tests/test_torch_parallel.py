@@ -349,30 +349,46 @@ def test_mesh_serving_bf16_subset_consistent():
     np.testing.assert_allclose(s1, s2, atol=1e-5)
 
 
-def _assert_same_shards(a, b):
-    assert (a.block, a.col_block, a.shape, a.nnz) == (b.block, b.col_block, b.shape, b.nnz)
-    for sa, sb in zip(a.shards, b.shards):
-        assert (sa.empty_rows is None) == (sb.empty_rows is None)
-        if sa.empty_rows is not None:
-            assert torch.equal(sa.empty_rows, sb.empty_rows)
-        assert [(c.L, c.C, c.n_chunks, c.n_valid) for c in sa.classes] == \
-            [(c.L, c.C, c.n_chunks, c.n_valid) for c in sb.classes]
-        for ca, cb in zip(sa.classes, sb.classes):
-            for name in ("rows", "indices", "data", "lengths"):
-                ta, tb = getattr(ca, name), getattr(cb, name)
-                assert ta.dtype == tb.dtype and torch.equal(ta, tb), name
-
-
 def test_row_sharded_on_device_pack_matches_host():
-    """The device route of the sharded pack gives the host route's tensors,
-    every one, with the same dtype."""
-    mesh = create_mesh(8, "cpu")
+    """Every shard's tensors against a numpy reconstruction from the CSR,
+    on rows stored out of column order: each real row's first ``lengths``
+    entries are its CSR entries with the columns mapped to shard order,
+    every other entry is 0; each non-empty row sits in exactly one chunk
+    row of its shard, each empty row in its shard's ``empty_rows``."""
+    D = 8
+    mesh = create_mesh(D, "cpu")
     csr = _likes(150, 90, 0.15, 21)
-    csr.sort_indices()
-    host = RowShardedBuckets(csr, mesh, grid="fine", pack="host")
-    dev = RowShardedBuckets(csr, mesh, grid="fine", pack="device")
-    assert len(host.shards[0].classes) == len(dev.shards[0].classes)
-    _assert_same_shards(host, dev)
+    rng = np.random.default_rng(3)
+    order = np.concatenate([lo + rng.permutation(hi - lo)
+                            for lo, hi in zip(csr.indptr[:-1], csr.indptr[1:])])
+    csr = csr.__class__((csr.data[order], csr.indices[order], csr.indptr), shape=csr.shape)
+    sh = RowShardedBuckets(csr, mesh, grid="fine")
+    block, col_block = sh.block, sh.col_block
+    assert (block, col_block, sh.shape, sh.nnz) == (19, 12, csr.shape, csr.nnz)
+    lengths = np.diff(csr.indptr)
+    for k, shard in enumerate(sh.shards):
+        seen = []
+        for cls in shard.classes:
+            rows, lens = cls.rows.numpy(), cls.lengths.numpy()
+            idx, dat = cls.indices.numpy(), cls.data.numpy()
+            assert (cls.indices.dtype, cls.data.dtype) == (torch.int32, torch.float32)
+            assert cls.n_valid == [int(n) for n in (rows != block).sum(1)]
+            want_idx, want_dat = np.zeros_like(idx), np.zeros_like(dat)
+            for c, j in zip(*np.nonzero(rows != block)):
+                g = rows[c, j] * D + k
+                lo, hi = csr.indptr[g], csr.indptr[g + 1]
+                cols = csr.indices[lo:hi]
+                assert lens[c, j] == hi - lo <= cls.L
+                want_idx[c, j, :hi - lo] = (cols % D) * col_block + cols // D
+                want_dat[c, j, :hi - lo] = csr.data[lo:hi]
+                seen.append(g)
+            assert not lens[rows == block].any()
+            np.testing.assert_array_equal(idx, want_idx)
+            np.testing.assert_array_equal(dat, want_dat)
+        own = np.arange(k, csr.shape[0], D)
+        assert sorted(seen) == own[lengths[own] > 0].tolist()
+        empty = [] if shard.empty_rows is None else shard.empty_rows.tolist()
+        assert empty == (own[lengths[own] == 0] // D).tolist()
 
 
 def test_row_sharded_fit_on_device_pack_end_to_end():
@@ -385,6 +401,29 @@ def test_row_sharded_fit_on_device_pack_end_to_end():
     meshed.fit(likes, show_progress=False)
     np.testing.assert_allclose(single.user_factors, meshed.user_factors, atol=2e-4)
     np.testing.assert_allclose(single.item_factors, meshed.item_factors, atol=2e-4)
+
+
+@pytest.mark.parametrize("mesh", [7, 8])
+def test_fit_callback_and_training_loss_with_and_without_a_mesh(mesh):
+    """One fit loop serves both: the callback sees every iteration in order
+    with its seconds and the training loss, and the meshed fit's losses are
+    the unmeshed fit's (the factors agree to 2e-4, as above), on a mesh
+    that divides neither side's rows (7) and one that divides the items'."""
+    likes = _likes(90, 60, 0.12, 22)
+    calls = {}
+    for m in (None, mesh):
+        model = ALS(factors=16, iterations=4, random_state=4, mesh=m,
+                    calculate_training_loss=True)
+        model.fit(likes, show_progress=False,
+                  callback=lambda it, secs, loss, out=calls.setdefault(m, []):
+                  out.append((it, secs, loss)))
+        assert model.user_factors.shape == (90, 16) and model.item_factors.shape == (60, 16)
+    for m in (None, mesh):
+        assert [it for it, _, _ in calls[m]] == [0, 1, 2, 3]
+        assert all(secs >= 0 and isinstance(loss, float) for _, secs, loss in calls[m])
+    losses = np.array([[loss for _, _, loss in calls[m]] for m in (None, mesh)])
+    assert losses[0, -1] < losses[0, 0]
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
 
 
 def test_streaming_topk_on_mesh_matches_single_device():

@@ -73,21 +73,6 @@ def test_length_grid_and_chunk_policy_match_jax(grid):
             jsparse.chunk_pieces(count, L, 1 << 20, 4096)
 
 
-def test_numpy_packer_matches_native():
-    # the numpy path must pack exactly what the compiled packer packs
-    m = _matrix(3)
-    sel = np.array([0, 5, 7, 1, 299], dtype=np.int32)
-    native = tnative.pack_ragged(m.indptr, m.indices, m.data, sel, 128)
-    lib, tnative._lib = tnative._lib, None
-    tried, tnative._tried = tnative._tried, True  # force the numpy path
-    try:
-        plain = tnative.pack_ragged(m.indptr, m.indices, m.data, sel, 128)
-    finally:
-        tnative._lib, tnative._tried = lib, tried
-    for a, b in zip(native, plain):
-        np.testing.assert_array_equal(a, b)
-
-
 def test_packer_source_is_the_ports_own():
     # the port compiles its own copy of the packer, never the JAX package's
     pkg = os.path.dirname(os.path.abspath(implicit_tpu_torch.__file__))

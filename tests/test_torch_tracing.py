@@ -45,18 +45,18 @@ def _under(spans, parent):
     return [s for s in spans if s["parent"] == parent["id"]]
 
 
-@pytest.mark.parametrize("ingest,steps", [
-    ("device", ["prepare", "upload", "transpose", "plan user side", "plan item side",
-                "pack user side", "pack item side", "factor draw", "factor init",
-                "factor draw", "factor init", "copy back"]),
-    ("host", ["prepare", "transpose", "pack user side", "pack item side", "factor draw",
-              "factor init", "factor draw", "factor init", "copy back"]),
-])
-def test_fit_span_tree(ingest, steps):
+FIT_STEPS = ["prepare", "upload", "transpose", "plan user side", "plan item side",
+             "pack user side", "pack item side", "factor draw", "factor init",
+             "factor draw", "factor init", "copy back"]
+
+
+@pytest.mark.parametrize("ingest", ["auto", "device", "host"])
+def test_fit_span_tree(ingest):
     """One root ``fit``; its set-up steps in the order they run (the order
-    ``test_set_up_steps_are_logged`` reads from the debug lines), one
-    ``iteration`` span per iteration between them and the copy back; every
-    span carries the root's id."""
+    ``test_set_up_steps_are_logged`` reads from the debug lines), the same
+    whatever ``ingest`` says, one ``iteration`` span per iteration between
+    them and the copy back; every span carries the root's id."""
+    steps = FIT_STEPS
     with _profiled():
         _fit(iterations=3, ingest=ingest)
     spans = tracing.spans()
