@@ -20,6 +20,7 @@ import torch
 from tqdm.auto import tqdm
 
 from .. import tracing
+from .._device import to_host
 from ..ops import als as als_ops
 from ..ops import pcg64
 from ..parallel import als_sharded
@@ -317,12 +318,14 @@ class AlternatingLeastSquares(MatrixFactorizationBase):
     def _copy_back(self, X, Y, devices, gather=None):
         """Copies the fitted tables to the host in the storage dtype, as the
         model's factors; a meshed fit's shards are first gathered into row
-        order (``gather``). Returns the device tables."""
+        order (``gather``). The cast runs on the device, the copy through
+        ``_device.to_host`` (large CUDA tables staged through its pinned
+        ring). Returns the device tables."""
         with timed_step("copy back", devices):
             if gather is not None:
                 X, Y = gather(X, Y)
             storage = _as_torch_dtype(self.dtype)
-            self.user_factors, self.item_factors = (T.to(storage).cpu().numpy() for T in (X, Y))
+            self.user_factors, self.item_factors = to_host([X.to(storage), Y.to(storage)])
         return X, Y
 
     def _initial_factors(self, factors, n, random_state, device=None, solve=None):

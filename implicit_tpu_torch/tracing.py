@@ -35,7 +35,10 @@ device. ``recommend`` (a root) holds ``validate``, ``user rows``,
 Counters always count, a plain integer add each: ``device.mem_queries``
 (one per ``torch.cuda.mem_get_info`` call), ``init.device_draws`` and
 ``init.host_draws`` (one per starting factor table drawn on the card,
-``ops.pcg64``, or by numpy on the host), ``topk.library_selects`` (one per
+``ops.pcg64``, or by numpy on the host), ``copy_back.staged_bytes`` and
+``copy_back.plain_bytes`` (each fitted ALS table's bytes, by the route
+``_device.to_host`` copied it to the host: through the pinned ring, or
+plain), ``topk.library_selects`` (one per
 selection left to ``torch.topk``, ``ops.topk.select_topk_plain``) and the
 groups that modules register, such as ``launches.<entry>``
 (``ops.cg_kernels.LAUNCHES``, ``ops.topk.LAUNCHES``).
@@ -59,8 +62,9 @@ log = logging.getLogger("implicit_tpu_torch")
 # request 7
 MAX_SPANS = 50_000
 
-_COUNTS = {"device.mem_queries": 0, "init.device_draws": 0, "init.host_draws": 0,
-           "topk.library_selects": 0, "tracing.dropped": 0}
+_COUNTS = {"copy_back.plain_bytes": 0, "copy_back.staged_bytes": 0, "device.mem_queries": 0,
+           "init.device_draws": 0, "init.host_draws": 0, "topk.library_selects": 0,
+           "tracing.dropped": 0}
 _GROUPS = []  # (prefix, counts)
 _spans = collections.deque()
 _ids = itertools.count(1)

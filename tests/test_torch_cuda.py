@@ -1226,3 +1226,145 @@ def test_profiled_fit_on_cuda_draws_in_its_factor_draw_steps(cuda):
     assert [s["name"] for s in spans if s["parent"] == root["id"]] == [
         "prepare", "upload", "transpose", "plan user side", "plan item side", "pack user side",
         "pack item side", "factor draw", "factor draw", "iteration", "copy back"]
+
+
+# the copy back: _device.to_host's pinned ring against the plain .cpu()
+
+
+def _copy_routes():
+    from implicit_tpu_torch import tracing
+
+    c = tracing.counters()
+    return c["copy_back.staged_bytes"], c["copy_back.plain_bytes"]
+
+
+def _same_bits(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    as_int = {2: np.int16, 4: np.int32, 8: np.int64}[a.dtype.itemsize]
+    np.testing.assert_array_equal(a.view(as_int), b.view(as_int))
+
+
+# a table's size in slots: 0 rows, below two slots (the plain route), exactly
+# two, and ragged row counts that wrap the ring more than once
+@pytest.mark.parametrize("slots", [0, 1.5, 2, 2.375, 9.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.float64],
+                         ids=["f32", "f16", "f64"])
+def test_staged_copy_is_the_plain_copys(cuda, dtype, slots):
+    """``to_host`` of a table that the card is still writing gives ``.cpu()``'s
+    bits, NaN and infinities included; it stages a table of two slots' bytes
+    or more and counts its bytes by route."""
+    from implicit_tpu_torch import _device
+
+    F = 128
+    row = F * torch.empty(0, dtype=dtype).element_size()
+    n = int(slots * _device.SLOT_BYTES) // row + (7 if slots not in (0, 2) else 0)
+    T = torch.randn(n, F, device=cuda).to(dtype)
+    T.view(-1)[::997] = float("nan")
+    T.view(-1)[5::1009] = float("inf")
+    torch.cuda._sleep(50_000_000)  # the last write lands after the call queues its copies
+    T.mul_(3)
+    before = _copy_routes()
+    got, = _device.to_host([T])
+    moved = tuple(a - b for a, b in zip(_copy_routes(), before))
+    _same_bits(got, T.cpu().numpy())
+    nbytes = n * row
+    staged = nbytes >= 2 * _device.SLOT_BYTES
+    assert moved == ((nbytes, 0) if staged else (0, nbytes))
+    assert staged == (slots >= 2)
+
+
+@pytest.mark.parametrize("mesh", [None, 2], ids=["single", "mesh2"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_fit_copies_back_staged(cuda, monkeypatch, dtype, mesh):
+    """A fit on the card, single or on a 2-shard virtual mesh, stages both
+    tables: the model's factors are the plain copy of the fitted (gathered)
+    tables, bit for bit."""
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+    from implicit_tpu_torch.models import als as als_model
+    from implicit_tpu_torch.parallel import virtual_mesh
+
+    plays = generate_synthetic(40000, 36000, 400000, seed=5)
+    kept = []
+    copy_back = als_model.AlternatingLeastSquares._copy_back
+
+    def keep(self, *args, **kwargs):
+        X, Y = copy_back(self, *args, **kwargs)
+        kept.append([T.to(torch.from_numpy(np.empty(0, dtype)).dtype).cpu().numpy()
+                     for T in (X, Y)])
+        return X, Y
+
+    monkeypatch.setattr(als_model.AlternatingLeastSquares, "_copy_back", keep)
+    before = _copy_routes()
+    model = AlternatingLeastSquares(factors=256, iterations=1, random_state=2, dtype=dtype,
+                                    device=cuda,
+                                    mesh=None if mesh is None else virtual_mesh(mesh, cuda))
+    model.fit(plays, show_progress=False)
+    moved = tuple(a - b for a, b in zip(_copy_routes(), before))
+    assert moved == (model.user_factors.nbytes + model.item_factors.nbytes, 0)
+    (X, Y), = kept
+    _same_bits(model.user_factors, X)
+    _same_bits(model.item_factors, Y)
+
+
+def test_two_threads_copy_back_at_once(cuda):
+    """Two threads staging tables from one card at once, again and again:
+    each gets its own tables' bits."""
+    import threading
+
+    from implicit_tpu_torch import _device
+
+    rows = _device.SLOT_BYTES // (128 * 4)
+    tables = [[torch.randn(int(rows * f), 128, device=cuda) for f in fs]
+              for fs in ((2.5, 3.3), (4.1, 2.0))]
+    want = [[t.cpu().numpy() for t in ts] for ts in tables]
+    errors, rounds = [], []
+
+    def work(k):
+        try:
+            for _ in range(8):
+                for got, w in zip(_device.to_host(tables[k]), want[k]):
+                    _same_bits(got, w)
+                rounds.append(k)
+        except Exception as err:  # reported below, in the test's thread
+            errors.append(err)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert sorted(rounds) == [0] * 8 + [1] * 8
+
+
+def test_ring_stays_within_its_bytes_across_fits(cuda):
+    """Twenty fits on one card reuse one ring: the same pinned buffer, at
+    most 128 MB, and the pinned allocator holds no more after them (where
+    torch keeps its statistics: ``host_memory_stats`` is empty in some
+    builds, and both readings are then None)."""
+    from implicit_tpu_torch import _device
+    from implicit_tpu_torch.als import AlternatingLeastSquares
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+
+    plays = generate_synthetic(40000, 36000, 200000, seed=6)
+
+    def fit(i):
+        model = AlternatingLeastSquares(factors=128, iterations=1, random_state=i, device=cuda)
+        model.fit(plays, show_progress=False)
+        return model
+
+    fit(0)
+    device = _device.resolve_device(cuda)
+    ring = _device._rings[device]
+    pointer = ring.pinned.data_ptr()
+    pinned = torch.cuda.host_memory_stats().get("allocated_bytes.current")
+    before = _copy_routes()
+    for i in range(1, 21):
+        fit(i)
+    assert _device._rings[device] is ring and ring.pinned.data_ptr() == pointer
+    assert ring.pinned.numel() == _device.SLOTS * _device.SLOT_BYTES <= 128 * 10**6
+    assert torch.cuda.host_memory_stats().get("allocated_bytes.current") == pinned
+    staged = _copy_routes()[0] - before[0]
+    assert staged == 20 * (40000 + 36000) * 128 * 4
