@@ -2,8 +2,15 @@
 parameters from the traffic file.
 
 - ``fit``: whole fits back to back, each a new model of the configuration
-  with a seed-derived ``random_state``, until ``--seconds`` have passed; the
-  fit in progress then finishes inside the window.
+  (with a seed-derived ``random_state`` where its constructor takes one),
+  until ``--seconds`` have passed; the fit in progress then finishes inside
+  the window. It knows no model family: ``reference/<family>.py`` gives
+  ``fit_recorder(params)``, whose ``wrap`` goes around the configuration's
+  ``state_hook`` in the checked fit (None: no hook) and whose
+  ``answers(model, random_state)`` are what ``judge_fit_answers`` reads. A
+  traced fit's callback keeps its second positional argument, the seconds;
+  ``"fit_callback": false`` where the model's fit refuses a callback
+  (``cfbench/README.md``, "A fit family").
 - ``serve``: ``recommend`` requests of the configuration's model over factor
   tables made from the seed, in a closed loop with one caller: the next
   request is sent when the last returns. Request sizes are drawn per block
@@ -12,6 +19,7 @@ parameters from the traffic file.
 """
 
 import importlib
+import inspect
 import math
 import random
 import time
@@ -47,21 +55,24 @@ def check_model(model, config):
 
 
 def _shape(config, C):
+    """The inputs' sizes, and the model's where the configuration states
+    them (the defaults stand for a model without factors or iterations)."""
     params = config["params"]
+    dtype = np.dtype(params.get("dtype", "float32"))
     return dict(users=C.shape[0], items=C.shape[1], nnz=C.nnz,
                 users_nonempty=int((np.diff(C.indptr) > 0).sum()),
                 items_nonempty=int((np.bincount(C.indices, minlength=C.shape[1]) > 0).sum()),
-                factors=int(params["factors"]), iterations=int(params.get("iterations", 1)),
+                factors=int(params.get("factors", 0)), iterations=int(params.get("iterations", 1)),
                 cg_steps=int(config.get("fixed", {}).get("cg_steps", 0)),
-                dtype="bfloat16" if np.dtype(params.get("dtype", "float32")).itemsize == 2
-                else "float32",
-                table_bytes=np.dtype(params.get("dtype", "float32")).itemsize)
+                dtype="bfloat16" if dtype.itemsize == 2 else "float32",
+                table_bytes=dtype.itemsize)
 
 
 class _StateRecorder:
-    """Keeps the states a fit passes through: the outputs of the call named
-    by the configuration's ``state_hook`` (one ALS half-iteration each),
-    copied on the device at the half-iterations asked for."""
+    """Keeps the states a fit passes through, for a family's recorder: the
+    first call's first two arguments and the outputs of the calls numbered
+    in ``keep_calls`` (from 0) of the function it wraps, each copied on the
+    device."""
 
     def __init__(self, keep_calls):
         self.keep_calls, self.calls, self.kept = set(keep_calls), 0, {}
@@ -84,14 +95,23 @@ class FitGenerator:
         self.cfg, self.tr = run.config, run.traffic
 
     def setup(self):
-        run = self.run
-        self.C = data.interactions(self.cfg["data"], run.seed, run.device)
-        run.shape = _shape(self.cfg, self.C)
-        self.cls, self.params = _model_class(self.cfg), _params(self.cfg)
+        run, cfg = self.run, self.cfg
+        self.C = data.interactions(cfg["data"], run.seed, run.device)
+        run.shape = _shape(cfg, self.C)
+        self.cls, self.params = _model_class(cfg), _params(cfg)
+        self.seeded = "random_state" in inspect.signature(self.cls).parameters
+        self.takes_callback = bool(cfg.get("fit_callback", True))
         self.rs_base = data.seed_int(run.seed, 3)
         # the checked fit, drawn from the seed among the window's first fits
         self.checked = random.Random(data.seed_int(run.seed, 4)).randrange(
             int(self.tr["check_fits"]))
+        # its recorder, from the family: made now, so that a configuration the
+        # family cannot follow fails before the window
+        self.recorder = run.reference.fit_recorder({**cfg["params"], **cfg.get("fixed", {})})
+        self.hooks = [cfg["state_hook"]] if "state_hook" in cfg else []
+        if self.hooks and self.recorder.wrap is None:
+            raise ValueError(f"the family {cfg['family']!r} records through no state_hook; "
+                             f"the configuration names {cfg['state_hook']!r}")
         self._fit(-1, None)  # every shape of the window, built and loaded once
         if run.device.type == "cuda":
             torch.cuda.synchronize(run.device)
@@ -100,8 +120,8 @@ class FitGenerator:
         return (self.rs_base + i) % 2**63
 
     def _fit(self, i, callback):
-        model = self.cls(**self.params, random_state=self.random_state(i),
-                         device=self.run.device)
+        seed = dict(random_state=self.random_state(i)) if self.seeded else {}
+        model = self.cls(**self.params, **seed, device=self.run.device)
         check_model(model, self.cfg)
         model.fit(self.C, show_progress=False, callback=callback)
         return model
@@ -109,10 +129,6 @@ class FitGenerator:
     def window(self, seconds):
         run = self.run
         traced = run.trace_on
-        n_iter = int(self.params["iterations"])
-        if n_iter < 2:
-            raise ValueError("the fit check follows iterations 1 and n: it needs n >= 2")
-        keep = {0, 1, 2 * n_iter - 4, 2 * n_iter - 3}
         walls, iter_secs = [], []
         attempted = failed = 0
         self.answers = None
@@ -125,21 +141,20 @@ class FitGenerator:
                 prof = trace.profiler()
                 prof.start()
 
-            def callback(iteration, elapsed, loss, secs=secs,
+            def callback(*args, secs=secs,
                          profiled=(prof is not None and run.profile is None)):
-                secs.append(elapsed)
+                secs.append(args[1])  # every family's fit passes the seconds second
                 if profiled:
                     with trace.span("iteration_end"):
                         pass
 
-            recorder = _StateRecorder(keep) if i == self.checked else None
+            checked = i == self.checked
             s = time.perf_counter()
             attempted += 1
             try:
-                with trace.patched([self.cfg["state_hook"]] if recorder else [],
-                                   recorder.wrap if recorder else None), \
+                with trace.patched(self.hooks if checked else [], self.recorder.wrap), \
                         trace.span("fit"):
-                    model = self._fit(i, callback if traced else None)
+                    model = self._fit(i, callback if traced and self.takes_callback else None)
             except Exception as err:  # counted, and the window goes on
                 failed += 1
                 run.log(f"fit {i} failed: {err!r}")
@@ -150,12 +165,12 @@ class FitGenerator:
                 run.profile = prof
             walls.append(e - s)
             iter_secs.append(secs)
-            if recorder is not None and model is not None:
-                k = recorder.kept
-                self.answers = dict(start=k["start"], first=(k[0], k[1]),
-                                    before_last=(k[2 * n_iter - 4], k[2 * n_iter - 3]),
-                                    final=(model.user_factors, model.item_factors),
-                                    random_state=self.random_state(i))
+            if checked and model is not None:
+                try:
+                    self.answers = self.recorder.answers(model, self.random_state(i))
+                except Exception as err:  # a record the check cannot read: not correct
+                    failed += 1
+                    run.log(f"fit {i}: no answers for the check: {err!r}")
             del model
             i += 1
             if e - t0 >= seconds and i > self.checked:
@@ -170,7 +185,7 @@ class FitGenerator:
         run = self.run
         if self.answers is None:
             return None
-        rs = self.answers["random_state"]
+        rs = self.random_state(self.checked)
         params = {**self.cfg["params"], **self.cfg.get("fixed", {})}
         answers = (ref.fit_answers(self.C, params, rs, run.device, "tf32") if control
                    else self.answers)

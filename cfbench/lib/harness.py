@@ -96,6 +96,7 @@ class Run:
         self.log = log
         self.profile = self.trace = None
         self.record = self.shape = None
+        self.reference = None  # the family's plain reference module, loaded at set-up
         self.attempted = self.failed = 0
         self.setup_s = None
         self.counts = counts
@@ -127,6 +128,7 @@ def run_cell(spec, cell_name, seed, seconds, trace_on, device, t_start, control=
     gen = generators.GENERATORS[traffic["kind"]](run)
     spans = trace.spans_on(config.get("trace_spans", [])) if trace_on else contextlib.nullcontext()
     with spans:
+        run.reference = spec.reference(config["family"])
         gen.setup()
         run.setup_s = time.perf_counter() - t_start
         # the harness's own objects out of the collector's way in the window
@@ -160,7 +162,7 @@ def run_cell(spec, cell_name, seed, seconds, trace_on, device, t_start, control=
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    numbers = gen.check(spec.reference(config["family"]), control) or {}
+    numbers = gen.check(run.reference, control) or {}
     log(f"cfbench: reference check {time.perf_counter() - t_check:.1f} s")
     if details is not None:
         details.update(run=run, numbers=numbers)

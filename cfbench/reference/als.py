@@ -21,6 +21,8 @@ import contextlib
 import numpy as np
 import torch
 
+from cfbench.lib.generators import _StateRecorder
+
 ENTRY_BLOCK = 1 << 21
 
 
@@ -166,6 +168,32 @@ class Fit:
             if k in keep:
                 states[k] = (X, Y)
         return (X, Y), states
+
+
+class FitRecorder:
+    """What the checked fit keeps, through the configuration's
+    ``state_hook`` (``solve_side``, one half-iteration a call): the first
+    call's table and fixed table (the start), and the outputs of calls 0, 1,
+    2n-4 and 2n-3 (iterations 1 and n-1), each copied on the device."""
+
+    def __init__(self, params):
+        self.n = int(params["iterations"])
+        if self.n < 2:
+            raise ValueError("the fit check follows iterations 1 and n: it needs n >= 2")
+        self.states = _StateRecorder({0, 1, 2 * self.n - 4, 2 * self.n - 3})
+        self.wrap = self.states.wrap
+
+    def answers(self, model, random_state):
+        """The dict ``judge_fit_answers`` reads."""
+        k, n = self.states.kept, self.n
+        return dict(start=k["start"], first=(k[0], k[1]),
+                    before_last=(k[2 * n - 4], k[2 * n - 3]),
+                    final=(model.user_factors, model.item_factors), random_state=random_state)
+
+
+def fit_recorder(params):
+    """The checked fit's recorder (``lib/generators.py`` says what it gives)."""
+    return FitRecorder(params)
 
 
 def fit_answers(user_items, params, random_state, device, precision):

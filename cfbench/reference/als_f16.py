@@ -31,6 +31,8 @@ import torch
 
 from cfbench.reference.als import (Products, SideCSR, float32_products, initial_factors,
                                    judge_fit)
+# the checked fit keeps the states the 32-bit family's keeps
+from cfbench.reference.als import fit_recorder  # noqa: F401
 
 ENTRY_BLOCK = 1 << 19
 

@@ -25,14 +25,14 @@ def patched(owner, name, make):
 
 def unchanged(orig):
     """A solve that returns its state unchanged."""
-    return lambda X, Y, buckets, **kw: X
+    return lambda X, *args, **kw: X
 
 
 def half_rows(orig):
     """A solve that leaves half of the rows out."""
-    def solve(X, Y, buckets, **kw):
+    def solve(X, *args, **kw):
         keep = X[X.shape[0] // 2:].clone()
-        out = orig(X, Y, buckets, **kw)
+        out = orig(X, *args, **kw)
         out[out.shape[0] // 2:] = keep
         return out
     return solve
@@ -40,8 +40,8 @@ def half_rows(orig):
 
 def altered_answer(orig):
     """Every solve's first row altered where it is produced."""
-    def solve(X, Y, buckets, **kw):
-        out = orig(X, Y, buckets, **kw)
+    def solve(X, *args, **kw):
+        out = orig(X, *args, **kw)
         out[0] += 0.5
         return out
     return solve

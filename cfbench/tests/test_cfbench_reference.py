@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from cfbench.lib import data, generators, trace
+from cfbench.lib import data, trace
 from cfbench.reference import als as ref
 from cfbench.tests.tiny import CPU
 
@@ -42,13 +42,11 @@ def test_reference_follows_the_port():
     from implicit_tpu_torch.als import AlternatingLeastSquares
 
     C = data.interactions(SPEC, 3, CPU)
-    rec = generators._StateRecorder({0, 1, 2, 3})
+    rec = ref.fit_recorder(PARAMS)
     with trace.patched(["implicit_tpu_torch.ops.als:solve_side"], rec.wrap):
         m = AlternatingLeastSquares(factors=16, iterations=3, random_state=11, device="cpu")
         m.fit(C, show_progress=False)
-    answers = dict(start=rec.kept["start"], first=(rec.kept[0], rec.kept[1]),
-                   before_last=(rec.kept[2], rec.kept[3]), final=(m.user_factors, m.item_factors))
-    got = ref.judge_fit_answers(C, PARAMS, 11, answers, CPU)
+    got = ref.judge_fit_answers(C, PARAMS, 11, rec.answers(m, 11), CPU)
     assert got["start_gap"] == 0.0
     assert got["first_rel_fro"] < 1e-3 and got["last_rel_fro"] < 1e-4
 

@@ -40,8 +40,8 @@ def copy_folder(tmp):
 
 
 def run(spec, cell, seed=7, seconds=0.5, trace=False, **kw):
-    return harness.run_cell(spec, cell, seed, seconds, trace, CPU, time.perf_counter(),
-                            log=lambda msg: None, **kw)
+    kw.setdefault("log", lambda msg: None)
+    return harness.run_cell(spec, cell, seed, seconds, trace, CPU, time.perf_counter(), **kw)
 
 
 FIT_CELLS = ("als_lastfm360k_f128.fit", "als_ml20m_f256.fit")
