@@ -52,6 +52,7 @@ import numpy as np
 import torch
 from tqdm.auto import tqdm
 
+from .. import tracing
 from .._device import full_f32_matmul
 from ..ops import membership
 from ..parallel.mesh import check_mesh_arg
@@ -78,6 +79,9 @@ _EPOCH_MODES = {"sampled": 0, "grouped": 1, "grouped_pool": 2, "grouped_pool_ids
 _POOL_MODES = {1: 0, 2: 2, 3: 1}
 # the largest popularity snapshot the pool modes draw windows from
 _MAX_POOL = 1 << 21
+
+# the grouped epoch's counters: chunk updates, and calls of _scatter_add
+COUNTS = tracing.register("bpr", {"chunk_steps": 0, "scatter_calls": 0})
 
 
 def _scatter_add(table, idx, values):
@@ -285,6 +289,10 @@ def _bpr_epoch_grouped(X, Y, yb, classes, itemids, indptr, table, draws, lr, reg
     epoch-start snapshot ``yb[arrangement]``, and in mode 2 their factors
     too from ``Y[arrangement]`` (in mode 1 they stay live gathers). The
     updates land on the live Y and yb at the negatives' ids.
+
+    Each chunk's item updates (their arithmetic and the four scatters) run
+    inside a ``scatter`` span on X's device; ``COUNTS`` takes one
+    ``chunk_steps`` and four ``scatter_calls`` a chunk.
     """
     n_users, F = X.shape
     correct = torch.zeros((), dtype=torch.int64, device=X.device)
@@ -322,12 +330,15 @@ def _bpr_epoch_grouped(X, Y, yb, classes, itemids, indptr, table, draws, lr, reg
             with full_f32_matmul():
                 step = torch.bmm(sz[:, None, :], diff)[:, 0]
             X[crows[:nv]] = ((gamma ** n_keep)[:, None] * x + step)[:nv]
-            szx = sz[:, :, None] * x[:, None, :]
-            sreg = (scale * reg)[:, :, None]
-            _scatter_add(Y, cidx.reshape(-1), (szx - sreg * Yu).reshape(-1, F))
-            _scatter_add(Y, negids.reshape(-1), (-szx - sreg * Yn).reshape(-1, F))
-            _scatter_add(yb, cidx.reshape(-1), (scale * (z - reg * bl)).reshape(-1))
-            _scatter_add(yb, negids.reshape(-1), (scale * (-z - reg * bn)).reshape(-1))
+            with tracing.span("scatter", X.device):
+                szx = sz[:, :, None] * x[:, None, :]
+                sreg = (scale * reg)[:, :, None]
+                _scatter_add(Y, cidx.reshape(-1), (szx - sreg * Yu).reshape(-1, F))
+                _scatter_add(Y, negids.reshape(-1), (-szx - sreg * Yn).reshape(-1, F))
+                _scatter_add(yb, cidx.reshape(-1), (scale * (z - reg * bl)).reshape(-1))
+                _scatter_add(yb, negids.reshape(-1), (scale * (-z - reg * bn)).reshape(-1))
+            COUNTS["chunk_steps"] += 1
+            COUNTS["scatter_calls"] += 4
     return correct, skipped
 
 
@@ -439,141 +450,150 @@ class BayesianPersonalizedRanking(MatrixFactorizationBase):
         ``callback``, if given, is called after every epoch with (epoch,
         seconds, correct, skipped).
         """
-        rs = check_random_state(self.random_state)
-        mesh = self._serving_mesh()  # resolved (and refused) before anything is fitted
-        epoch_mode = self._resolve_epoch_mode()  # BPR_GROUPED read now, as in JAX
-        grouped = bool(epoch_mode) and mesh is None
-        pool_mode = _POOL_MODES[epoch_mode] if grouped else 0
-        dev = self.device if mesh is None else mesh.devices[0]
-        devices = [dev] if mesh is None else mesh.distinct()
+        with tracing.span("fit", family="bpr", factors=self.factors,
+                          iterations=self.iterations) as fit_span:
+            rs = check_random_state(self.random_state)
+            mesh = self._serving_mesh()  # resolved (and refused) before anything is fitted
+            epoch_mode = self._resolve_epoch_mode()  # BPR_GROUPED read now, as in JAX
+            grouped = bool(epoch_mode) and mesh is None
+            pool_mode = _POOL_MODES[epoch_mode] if grouped else 0
+            dev = self.device if mesh is None else mesh.devices[0]
+            devices = [dev] if mesh is None else mesh.distinct()
 
-        with timed_step("prepare", dev):
-            if user_items.dtype != np.float32:
-                user_items = user_items.astype(np.float32)
-            user_items = check_csr(user_items)
-            if self.verify_negative_samples and not user_items.has_sorted_indices:
-                user_items.sort_indices()
-            users, items = user_items.shape
-            user_counts = np.ediff1d(user_items.indptr)
-            userids = np.repeat(np.arange(users, dtype=np.int32), user_counts)
+            with timed_step("prepare", dev):
+                if user_items.dtype != np.float32:
+                    user_items = user_items.astype(np.float32)
+                user_items = check_csr(user_items)
+                if self.verify_negative_samples and not user_items.has_sorted_indices:
+                    user_items.sort_indices()
+                users, items = user_items.shape
+                user_counts = np.ediff1d(user_items.indptr)
+                userids = np.repeat(np.arange(users, dtype=np.int32), user_counts)
+            fit_span.set(users=users, items=items, nnz=user_items.nnz)
 
-        # factors+1 layout, drawn as the JAX package draws them (items
-        # first): last column the item bias, the user column pinned to 1
-        F = self.factors
-        with timed_step("factor draw", dev):
-            if self.item_factors is None:
-                self.item_factors = (rs.random((items, F + 1), dtype=np.float32) - 0.5) / F
-                item_counts = np.bincount(user_items.indices, minlength=items)
-                self.item_factors[item_counts == 0] = np.zeros(F + 1)
-            if self.user_factors is None:
-                self.user_factors = (rs.random((users, F + 1), dtype=np.float32) - 0.5) / F
-                self.user_factors[user_counts == 0] = np.zeros(F + 1)
+            # factors+1 layout, drawn as the JAX package draws them (items
+            # first): last column the item bias, the user column pinned to 1
+            F = self.factors
+            with timed_step("factor draw", dev):
+                if self.item_factors is None:
+                    self.item_factors = (rs.random((items, F + 1), dtype=np.float32) - 0.5) / F
+                    item_counts = np.bincount(user_items.indices, minlength=items)
+                    self.item_factors[item_counts == 0] = np.zeros(F + 1)
+                if self.user_factors is None:
+                    self.user_factors = (rs.random((users, F + 1), dtype=np.float32) - 0.5) / F
+                    self.user_factors[user_counts == 0] = np.zeros(F + 1)
+                    self.user_factors[:, F] = 1.0
+            if not np.allclose(self.user_factors[:, F], 1.0):
+                # the split-bias device layout scores with the user bias column
+                # fixed at its pinned value
+                log.warning("BPR pins the user bias column (user_factors[:, factors]) "
+                            "to 1.0 during training; overwriting supplied values")
                 self.user_factors[:, F] = 1.0
-        if not np.allclose(self.user_factors[:, F], 1.0):
-            # the split-bias device layout scores with the user bias column
-            # fixed at its pinned value
-            log.warning("BPR pins the user bias column (user_factors[:, factors]) "
-                        "to 1.0 during training; overwriting supplied values")
-            self.user_factors[:, F] = 1.0
 
-        self._user_norms = self._item_norms = None
+            self._user_norms = self._item_norms = None
 
-        samples = len(user_items.data)
-        if samples == 0:
-            self._check_factors(torch.as_tensor(self.user_factors),
-                                torch.as_tensor(self.item_factors))
-            return
+            samples = len(user_items.data)
+            if samples == 0:
+                self._check_factors(torch.as_tensor(self.user_factors),
+                                    torch.as_tensor(self.item_factors))
+                return
 
-        batch = int(min(_MAX_BATCH, max(64, 1 << int(np.ceil(np.log2(max(samples // 64, 1)))))))
-        steps = max(1, -(-samples // batch))
-        bisect_iters = int(np.ceil(np.log2(max(int(user_counts.max()), 2)))) + 1
+            batch = int(min(_MAX_BATCH, max(64, 1 << int(np.ceil(np.log2(max(samples // 64, 1)))))))
+            steps = max(1, -(-samples // batch))
+            bisect_iters = int(np.ceil(np.log2(max(int(user_counts.max()), 2)))) + 1
 
-        # exact O(1) negative verification via the cuckoo pair table; the
-        # bisection handles shapes the table can't
-        bits, pt = None, None
-        if self.verify_negative_samples:
-            with timed_step("pair table", dev):
-                pt = membership.build_pair_table(user_items, row_ids=userids)
-                if pt is not None:
-                    bits = pt.bits
+            # exact O(1) negative verification via the cuckoo pair table; the
+            # bisection handles shapes the table can't
+            bits, pt = None, None
+            if self.verify_negative_samples:
+                with timed_step("pair table", dev):
+                    pt = membership.build_pair_table(user_items, row_ids=userids)
+                    if pt is not None:
+                        bits = pt.bits
 
-        # device layout: (.., factors) blocks + a separate item-bias vector,
-        # one replica (and one copy of the flats) per distinct device
-        replicas, flats = {}, {}
-        with timed_step("upload", devices):
-            for d in devices:
-                replicas[d] = tuple(torch.tensor(a, dtype=torch.float32, device=d) for a in (
-                    self.user_factors[:, :F], self.item_factors[:, :F], self.item_factors[:, F]))
-                flats[d] = (None if grouped else torch.as_tensor(userids.astype(np.int64), device=d),
-                            torch.as_tensor(user_items.indices.astype(np.int64), device=d),
-                            torch.as_tensor(user_items.indptr.astype(np.int64), device=d),
-                            None if pt is None else pt.to_device(d))
-        X, Y, yb = replicas[dev]
-        uids, itemids, indptr, table = flats[dev]
-        if grouped:
-            with timed_step("chunks", dev):
-                classes = grouped_classes(user_items, dev)
-        arrangement = None
-        if pool_mode:
-            # drawn where the JAX package draws it: after the starting
-            # factors, before the epochs' seed
-            with timed_step("arrangement", dev):
-                arrangement = torch.as_tensor(pool_arrangement(
-                    rs, user_items, max(idx.shape[2] for _, idx, _, _ in classes)
-                ).astype(np.int64), device=dev)
+            # device layout: (.., factors) blocks + a separate item-bias vector,
+            # one replica (and one copy of the flats) per distinct device
+            replicas, flats = {}, {}
+            with timed_step("upload", devices):
+                for d in devices:
+                    replicas[d] = tuple(torch.tensor(a, dtype=torch.float32, device=d) for a in (
+                        self.user_factors[:, :F], self.item_factors[:, :F],
+                        self.item_factors[:, F]))
+                    flats[d] = (None if grouped
+                                else torch.as_tensor(userids.astype(np.int64), device=d),
+                                torch.as_tensor(user_items.indices.astype(np.int64), device=d),
+                                torch.as_tensor(user_items.indptr.astype(np.int64), device=d),
+                                None if pt is None else pt.to_device(d))
+            X, Y, yb = replicas[dev]
+            uids, itemids, indptr, table = flats[dev]
+            if grouped:
+                with timed_step("chunks", dev):
+                    classes = grouped_classes(user_items, dev)
+            arrangement = None
+            if pool_mode:
+                # drawn where the JAX package draws it: after the starting
+                # factors, before the epochs' seed
+                with timed_step("arrangement", dev):
+                    arrangement = torch.as_tensor(pool_arrangement(
+                        rs, user_items, max(idx.shape[2] for _, idx, _, _ in classes)
+                    ).astype(np.int64), device=dev)
 
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(rs.integers(0, 2**31)))
-        # float32 rates, as the JAX package passes them
-        lr, reg = float(np.float32(self.learning_rate)), float(np.float32(self.regularization))
-        verify = dict(verify_neg=self.verify_negative_samples, bisect_iters=bisect_iters,
-                      bits=bits)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(rs.integers(0, 2**31)))
+            # float32 rates, as the JAX package passes them
+            lr, reg = float(np.float32(self.learning_rate)), float(np.float32(self.regularization))
+            verify = dict(verify_neg=self.verify_negative_samples, bisect_iters=bisect_iters,
+                          bits=bits)
 
-        log.debug("Running %i BPR training epochs", self.iterations)
-        with tqdm(total=self.iterations, disable=not show_progress) as progress:
-            for epoch in range(self.iterations):
-                s = time.time()
-                if grouped:
-                    draws = (_pool_draws(gen, classes, arrangement.shape[0]) if pool_mode
-                             else _group_draws(gen, classes, samples))
-                    correct, skipped = _bpr_epoch_grouped(
-                        X, Y, yb, classes, itemids, indptr, table, draws, lr, reg,
-                        pool_mode=pool_mode, arrangement=arrangement, **verify)
-                    total = samples  # every positive visited exactly once
-                elif mesh is not None:
-                    # each shard draws ceil(batch / D) samples per step
-                    local_batch = -(-batch // mesh.size)
-                    correct, skipped = _bpr_epoch_sharded(
-                        replicas, flats,
-                        _shard_sample_draws(gen, steps, local_batch, samples, mesh), lr, reg,
-                        mesh=mesh, **verify)
-                    total = steps * local_batch * mesh.size
-                else:
-                    correct, skipped = _bpr_epoch(
-                        X, Y, yb, uids, itemids, indptr, table,
-                        _sample_draws(gen, steps, batch, samples), lr, reg, **verify)
-                    total = steps * batch
-                correct, skipped = int(correct), int(skipped)  # waits for the epoch
-                progress.update(1)
-                if total != skipped:
-                    progress.set_postfix({
-                        "train_auc": f"{100.0 * correct / (total - skipped):0.2f}%",
-                        "skipped": f"{100.0 * skipped / total:0.2f}%",
-                    })
-                if callback:
-                    callback(epoch, time.time() - s, correct, skipped)
+            # an epoch's update steps: chunks (grouped) or minibatches
+            n_steps = sum(rows.shape[0] for rows, *_ in classes) if grouped else steps
+            log.debug("Running %i BPR training epochs", self.iterations)
+            with tqdm(total=self.iterations, disable=not show_progress) as progress:
+                for epoch in range(self.iterations):
+                    s = time.time()
+                    with tracing.span("iteration", devices, iteration=epoch) as it_span:
+                        if grouped:
+                            draws = (_pool_draws(gen, classes, arrangement.shape[0]) if pool_mode
+                                     else _group_draws(gen, classes, samples))
+                            correct, skipped = _bpr_epoch_grouped(
+                                X, Y, yb, classes, itemids, indptr, table, draws, lr, reg,
+                                pool_mode=pool_mode, arrangement=arrangement, **verify)
+                            total = samples  # every positive visited exactly once
+                        elif mesh is not None:
+                            # each shard draws ceil(batch / D) samples per step
+                            local_batch = -(-batch // mesh.size)
+                            correct, skipped = _bpr_epoch_sharded(
+                                replicas, flats,
+                                _shard_sample_draws(gen, steps, local_batch, samples, mesh), lr,
+                                reg, mesh=mesh, **verify)
+                            total = steps * local_batch * mesh.size
+                        else:
+                            correct, skipped = _bpr_epoch(
+                                X, Y, yb, uids, itemids, indptr, table,
+                                _sample_draws(gen, steps, batch, samples), lr, reg, **verify)
+                            total = steps * batch
+                        correct, skipped = int(correct), int(skipped)  # waits for the epoch
+                        it_span.set(chunks=n_steps, entries=total)
+                    progress.update(1)
+                    if total != skipped:
+                        progress.set_postfix({
+                            "train_auc": f"{100.0 * correct / (total - skipped):0.2f}%",
+                            "skipped": f"{100.0 * skipped / total:0.2f}%",
+                        })
+                    if callback:
+                        callback(epoch, time.time() - s, correct, skipped)
 
-        # the public factors+1 layout: the bias as trailing column, the user
-        # bias column pinned to 1.0
-        with timed_step("copy back", dev):
-            users_f = np.empty((users, F + 1), dtype=self.dtype)
-            users_f[:, :F] = X.cpu().numpy()
-            users_f[:, F] = self.user_factors[:, F]
-            items_f = np.empty((items, F + 1), dtype=self.dtype)
-            items_f[:, :F] = Y.cpu().numpy()
-            items_f[:, F] = yb.cpu().numpy()
-        self.user_factors, self.item_factors = users_f, items_f
-        self._check_factors(torch.from_numpy(users_f), torch.from_numpy(items_f))
+            # the public factors+1 layout: the bias as trailing column, the user
+            # bias column pinned to 1.0
+            with timed_step("copy back", dev):
+                users_f = np.empty((users, F + 1), dtype=self.dtype)
+                users_f[:, :F] = X.cpu().numpy()
+                users_f[:, F] = self.user_factors[:, F]
+                items_f = np.empty((items, F + 1), dtype=self.dtype)
+                items_f[:, :F] = Y.cpu().numpy()
+                items_f[:, F] = yb.cpu().numpy()
+            self.user_factors, self.item_factors = users_f, items_f
+            self._check_factors(torch.from_numpy(users_f), torch.from_numpy(items_f))
 
     # the npz layout both packages save and load
     SAVE_KEYS = ("user_factors", "item_factors", "regularization", "factors",

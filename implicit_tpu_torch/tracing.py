@@ -29,8 +29,12 @@ The program's spans: ``fit`` (a root) holds its set-up steps
 device; past ``ops.cg_kernels.MAX_FACTORS`` factors an ``iteration`` holds
 a ``wide solve`` per half-iteration (``ops/als.py:_solve_side_core``, the
 classes of the composed CG, attr ``stage`` "model step"), with a CUDA
-device. ``recommend`` (a root) holds ``validate``, ``user rows``,
-``dispatch`` (with its ``topk``), ``wait`` and ``post``.
+device. BPR's ``fit`` (``models/bpr.py``, attr ``family`` "bpr") holds its
+set-up steps and an ``iteration`` per epoch (attrs ``chunks``, the epoch's
+update steps, and ``entries``, the positives visited), with a CUDA device;
+the grouped epoch's ``iteration`` holds a ``scatter`` per chunk (its item
+updates), with a CUDA device. ``recommend`` (a root) holds ``validate``,
+``user rows``, ``dispatch`` (with its ``topk``), ``wait`` and ``post``.
 
 Counters always count, a plain integer add each: ``device.mem_queries``
 (one per ``torch.cuda.mem_get_info`` call), ``init.device_draws`` and
@@ -41,7 +45,9 @@ Counters always count, a plain integer add each: ``device.mem_queries``
 plain), ``topk.library_selects`` (one per
 selection left to ``torch.topk``, ``ops.topk.select_topk_plain``) and the
 groups that modules register, such as ``launches.<entry>``
-(``ops.cg_kernels.LAUNCHES``, ``ops.topk.LAUNCHES``).
+(``ops.cg_kernels.LAUNCHES``, ``ops.topk.LAUNCHES``) and ``bpr.chunk_steps``
+and ``bpr.scatter_calls`` (``models.bpr.COUNTS``: one per chunk update of
+the grouped epoch, one per ``_scatter_add`` call there).
 
 :func:`timed_step` is the set-up steps' block: a span, and the debug line of
 its seconds.
@@ -58,8 +64,8 @@ import torch
 
 log = logging.getLogger("implicit_tpu_torch")
 
-# spans kept, the newest; a profiled fit records about 30, a profiled
-# request 7
+# spans kept, the newest; a profiled ALS fit records about 30, a grouped
+# BPR fit at the last.fm shape about 1,400, a profiled request 7
 MAX_SPANS = 50_000
 
 _COUNTS = {"copy_back.plain_bytes": 0, "copy_back.staged_bytes": 0, "device.mem_queries": 0,

@@ -1,10 +1,11 @@
 """The port's spans and counters (``implicit_tpu_torch.tracing``) on the CPU.
 
 Spans are recorded only while a ``torch.profiler`` session records: the
-trees of an ALS fit and of ``recommend`` under a CPU profiler, their place
-on the profiler's clock, nothing with the profiler off, the bounded buffer.
-Counters always count: kernel launches (``ops.cg_kernels.LAUNCHES``) and
-the free-memory queries of the top-k's budget.
+trees of an ALS fit, a BPR fit and ``recommend`` under a CPU profiler,
+their place on the profiler's clock, nothing with the profiler off, the
+bounded buffer. Counters always count: kernel launches
+(``ops.cg_kernels.LAUNCHES``), BPR's grouped chunks and scatters and the
+free-memory queries of the top-k's budget.
 """
 
 import numpy as np
@@ -14,7 +15,9 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from implicit_tpu_torch import tracing
 from implicit_tpu_torch.als import AlternatingLeastSquares
+from implicit_tpu_torch.bpr import BayesianPersonalizedRanking
 from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+from implicit_tpu_torch.models import bpr
 from implicit_tpu_torch.ops import cg_kernels, topk
 from implicit_tpu_torch.ops.topk import _score_budget_elements
 
@@ -92,6 +95,59 @@ def test_meshed_fit_span_tree():
     assert all(s["root"] == root["id"] for s in spans)
     its = [c for c in _under(spans, root) if c["name"] == "iteration"]
     assert [c["attrs"]["iteration"] for c in its] == [0, 1]
+
+
+BPR_STEPS = ["prepare", "factor draw", "pair table", "upload"]
+
+
+@pytest.mark.parametrize("epoch_mode", ["grouped", "sampled"])
+def test_bpr_fit_span_tree(epoch_mode):
+    """BPR's fit: one root ``fit``, its set-up steps, one ``iteration`` per
+    epoch (CPU: no device seconds) and the copy back; a grouped epoch holds
+    one ``scatter`` per chunk and counts ``bpr.chunk_steps`` (chunks x
+    epochs) and ``bpr.scatter_calls`` (four a chunk), the sampled epoch
+    neither. With the profiler off the counters still count and no span is
+    recorded."""
+    grouped = epoch_mode == "grouped"
+    n_chunks = sum(rows.shape[0] for rows, *_ in bpr.grouped_classes(PLAYS, "cpu"))
+
+    def fit():
+        BayesianPersonalizedRanking(factors=8, iterations=3, random_state=4, device="cpu",
+                                    epoch_mode=epoch_mode).fit(PLAYS, show_progress=False)
+
+    before = tracing.counters()
+    with _profiled():
+        fit()
+    moved = {k: v - before[k] for k, v in tracing.counters().items() if k.startswith("bpr.")}
+    assert moved == ({"bpr.chunk_steps": 3 * n_chunks, "bpr.scatter_calls": 12 * n_chunks}
+                     if grouped else {"bpr.chunk_steps": 0, "bpr.scatter_calls": 0})
+    spans = tracing.spans()
+    root, = [s for s in spans if s["parent"] is None]
+    assert root["name"] == "fit" and root["counts"] == {k: v for k, v in moved.items() if v}
+    assert root["attrs"] == dict(family="bpr", factors=8, iterations=3, users=300, items=200,
+                                 nnz=PLAYS.nnz)
+    assert all(s["root"] == root["id"] for s in spans)
+    children = _under(spans, root)
+    assert [c["name"] for c in children] == (
+        BPR_STEPS + ["chunks"] * grouped + ["iteration"] * 3 + ["copy back"])
+    assert all(c["attrs"] == {"stage": "fit set-up"} for c in children
+               if c["name"] != "iteration")
+    its = [c for c in children if c["name"] == "iteration"]
+    for k, it in enumerate(its):
+        attrs = it["attrs"]
+        if grouped:
+            assert attrs == dict(iteration=k, chunks=n_chunks, entries=PLAYS.nnz)
+        else:  # equal minibatches, at least nnz samples
+            assert attrs["iteration"] == k and attrs["entries"] >= PLAYS.nnz
+            assert attrs["entries"] % attrs["chunks"] == 0
+        scatters = _under(spans, it)
+        assert [s["name"] for s in scatters] == ["scatter"] * (n_chunks if grouped else 0)
+        assert all(s["counts"] == {} for s in scatters)
+    tracing.clear()
+    fit()
+    assert tracing.spans() == []
+    assert tracing.counters()["bpr.chunk_steps"] - before["bpr.chunk_steps"] == (
+        6 * n_chunks if grouped else 0)
 
 
 def test_nothing_is_recorded_with_the_profiler_off():
