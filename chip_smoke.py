@@ -12,8 +12,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. build the CUDA kernels from ``implicit_tpu_torch/ops/csrc`` (nvcc, one
    process per library, all at once, always from the sources), and print
    ptxas's registers and spills of every ``cg_full``, ``weighted_matvec``,
-   ``cg_update``, ``pcg64_uniform`` and ``topk_select`` instantiation, which
-   must not spill;
+   ``cg_update``, ``pcg64_uniform``, ``topk_select`` and
+   ``bpr_item_update`` instantiation, which must not spill;
 2. each kernel against its plain PyTorch version on the card, in float32,
    bfloat16 and int8 (per-row scales), at the fit's own class shapes, with
    times and the least time the card could take (``bound``); the same bar
@@ -45,7 +45,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    at the bulk serving request (1024 x 292,385, k=10), 64 users and one, with
    49 liked items a row excluded: the plain version's ids and scores (the
    bar must reject the plain version without the exclusions), and ms beside
-   its bytes bound, the plain version and ``torch.topk`` alone;
+   its bytes bound, the plain version and ``torch.topk`` alone. BPR's
+   grouped item update (``ops/bpr_update.py``, ``csrc/bpr_item_update.cu``)
+   at the largest class of the grouped epoch on phase 3's last.fm-shaped
+   data (F = 128; the BPR cell's data is generated otherwise): every element
+   within the float32 bound of its row's sum against a float64 sum of the
+   same terms (``bpr_update.bpr_item_update_reference``), as the four
+   ``index_put_(accumulate=True)`` calls it replaces must be too (the plain
+   version with a kept entry dropped must be rejected), the same bits twice,
+   and ms beside its bytes bound, the plain version and the four
+   ``index_put_`` calls;
 3. the ingest at the last.fm-360k shape (360k users x 160k items, 17.5M
    nnz): ``pack_pair_on_device``'s pack on the card against the same pack
    on the CPU, as the f=128 float32 fit packs, on the pow2 and fine grids,
@@ -70,8 +79,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 5. the SGD families (torch ops, no kernel of their own) on phase 3's data:
    BPR f=128 grouped and sampled (s/epoch, samples/s, correct and skipped
    per epoch, set-up by step; a second grouped fit of the same seed must
-   give the same bits; the grouped epochs again with ``index_add_`` for
-   the accumulation's cost), LMF f=32 ``neg_prop=30`` (its pool routes and
+   give the same bits), LMF f=32 ``neg_prop=30`` (its pool routes and
    s/epoch), one ``torch.profiler`` epoch of each (top kernels and ops,
    busy share), ``recommend`` from both; one grouped BPR epoch and LMF
    class updates with draws made on the host, card against CPU, whose bar
@@ -275,6 +283,9 @@ DRAW_CASES = {"shape": (358868, 128), "ml20m_user_table": (138493, 256)}
 TOPK_CASES = {"shape": (1024, 292385, 10), "batch_64": (64, 292385, 10),
               "single": (1, 292385, 10)}
 TOPK_LIKED = 49
+
+# BPR's grouped item update: the benchmark cell's width (bpr_lastfm360k_f128)
+BPR_UPDATE_F = 128
 
 # the card's peaks for bound_ms (H100 SXM data sheet, dense, at 700 W): HBM,
 # float32 on the CUDA cores, and the tensor cores in TF32 and bfloat16
@@ -859,6 +870,146 @@ def phase_topk(device):
         del scores, plain_scores, got, want, wrong, excl
         torch.cuda.empty_cache()
     return row
+
+
+def bpr_update_inputs(plays, device, F=BPR_UPDATE_F, seed=8400000001):
+    """One chunk of the grouped BPR epoch at the largest class of
+    ``grouped_classes(plays)`` (most entries over its chunks): its first
+    chunk's liked ids and valid entries, negatives drawn by popularity as
+    the epoch draws them (``itemids[r]``), 1% of the valid entries skipped,
+    N(0, 0.1^2) tables and user rows, z uniform; with the class's (n, C,
+    L) and the rows the chunk touches."""
+    import torch
+
+    from implicit_tpu_torch.models import bpr as bpr_mod
+
+    classes = bpr_mod.grouped_classes(plays, device)
+    _, idx, dat, _ = max(classes, key=lambda c: c[1].numel())
+    n, C, L = idx.shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    itemids = torch.as_tensor(plays.indices.astype(np.int64), device=device)
+    n_items = plays.shape[1]
+    Y = torch.randn((n_items, F), generator=gen, device=device) * 0.1
+    yb = torch.randn(n_items, generator=gen, device=device) * 0.1
+    x = torch.randn((C, F), generator=gen, device=device) * 0.1
+    z = torch.rand((C, L), generator=gen, device=device)
+    negids = itemids[torch.randint(0, plays.nnz, (C, L), generator=gen, device=device)]
+    keep = (dat[0] != 0) & (torch.rand((C, L), generator=gen, device=device) >= 0.01)
+    cidx = idx[0]
+    touched = int(torch.cat((cidx[keep], negids[keep])).unique().numel())
+    del classes, idx, dat
+    return (Y, yb, x, z, cidx, negids, keep), (n, C, L), touched
+
+
+def phase_bpr_update(device, plays):
+    """BPR's grouped item update (``ops/bpr_update.py:bpr_item_update``,
+    ``csrc/bpr_item_update.cu``) at the largest class of ``plays`` (phase
+    3's last.fm-shaped data; ``bpr_update_inputs``) at F = 128: within the
+    float32 bound of every row's sum of a float64 reference
+    (``bpr_update.bpr_item_update_reference``), as the four
+    ``index_put_(accumulate=True)`` calls it replaces must be too, which
+    the same bar must tell from the plain version with one kept entry
+    dropped; the same bits twice; ms of
+    the whole call (keys, sort, two launches) over ``REPS`` calls and from
+    a CUDA graph, the two launches alone from a graph, the bound (each
+    entry's key, position and z, x, and the touched rows read and written
+    once, over 3.35 TB/s), the plain version and, as the yardstick, the four
+    ``index_put_`` calls on prebuilt update rows (``library_ms``) and with
+    the arithmetic that builds them (``old_route_ms``); a row of the kernels
+    line."""
+    import torch
+
+    from implicit_tpu_torch.ops import bpr_update
+
+    lr, reg = 0.01, 0.01
+    inputs, (n, C, L), touched = bpr_update_inputs(plays, device)
+    Y, yb, x, z, cidx, negids, keep = inputs
+    F = BPR_UPDATE_F
+    tag = f"bpr_item_update C={C} L={L} F={F} (class of {n} chunks)"
+    scale = torch.where(keep, lr, 0.0)
+    sz = scale * z
+    sreg = (scale * reg)[:, :, None]
+    ids = (cidx.reshape(-1), negids.reshape(-1)) * 2
+
+    def run(out):
+        bpr_update.bpr_item_update(*out, x, z, cidx, negids, keep, lr, reg)
+        return out
+
+    def old_route(out):
+        Yu, bl, Yn, bn = out[0][cidx], out[1][cidx], out[0][negids], out[1][negids]
+        szx = sz[:, :, None] * x[:, None, :]
+        out[0].index_put_((ids[0],), (szx - sreg * Yu).reshape(-1, F), accumulate=True)
+        out[0].index_put_((ids[1],), (-szx - sreg * Yn).reshape(-1, F), accumulate=True)
+        out[1].index_put_((ids[0],), (scale * (z - reg * bl)).reshape(-1), accumulate=True)
+        out[1].index_put_((ids[1],), (scale * (-z - reg * bn)).reshape(-1), accumulate=True)
+        return out
+
+    got, again = run([Y.clone(), yb.clone()]), run([Y.clone(), yb.clone()])
+    old = old_route([Y.clone(), yb.clone()])
+    short = keep.clone().view(-1)
+    short[int(torch.nonzero(short)[-1])] = False  # the last kept entry dropped
+    wrong = [Y.clone(), yb.clone()]
+    bpr_update.bpr_item_update_plain(*wrong, x, z, cidx, negids, short.view(C, L), lr, reg)
+    ref = bpr_update.bpr_item_update_reference(Y, yb, x, z, cidx, negids, keep, lr, reg)
+    share, old_share, wrong_share = (bpr_update.bound_share(t, ref) for t in (got, old, wrong))
+    err, old_err = (max(float((t.double() - r).abs().max() / r.abs().max())
+                        for t, r in zip(out, ref[:2])) for out in (got, old))
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, again))
+    touched_rows = torch.zeros(Y.shape[0], dtype=torch.bool, device=device)
+    touched_rows[torch.cat((cidx[keep], negids[keep]))] = True
+    rows_as_old = int(((got[0].view(torch.int32) == old[0].view(torch.int32)).all(1)
+                       & touched_rows).sum())
+    if not (share <= 1 and old_share <= 1 and same):
+        raise AssertionError(f"{tag}: {share:.3g} / {old_share:.3g} of the float32 bound "
+                             f"(kernel / four index_put_), same bits twice: {same}")
+    if not wrong_share > 1:
+        raise AssertionError(f"{tag}: the bar does not tell a dropped entry apart")
+    del got, again, old, wrong, ref
+    res = {"shape_nCLF": [n, C, L, F], "entries": 2 * C * L, "kept": int(keep.sum()) * 2,
+           "touched_rows": touched, "bound_share": share, "index_put_bound_share": old_share,
+           "dropped_entry_bound_share": wrong_share, "err_of_scale": err,
+           "index_put_err_of_scale": old_err, "rows_as_index_put": rows_as_old}
+    out = [Y.clone(), yb.clone()]
+    res["ms"] = cuda_ms(lambda: run(out), REPS)
+    res["graph_ms"] = cuda_graph_ms(lambda: run(out), REPS)
+    keys = torch.where(keep, torch.stack((cidx, negids)), Y.shape[0]).to(torch.int32).view(-1)
+    keys, perm = torch.sort(keys, stable=True)
+    res["launch_graph_ms"] = cuda_graph_ms(
+        lambda: bpr_update._launch(*out, x, z, keys, perm, lr, reg), REPS)
+    res["plain_ms"] = cuda_ms(
+        lambda: bpr_update.bpr_item_update_plain(*out, x, z, cidx, negids, keep, lr, reg), 10)
+    szx = sz[:, :, None] * x[:, None, :]
+    rows = ((szx - sreg * out[0][cidx]).reshape(-1, F), (-szx - sreg * out[0][negids])
+            .reshape(-1, F), (scale * (z - reg * out[1][cidx])).reshape(-1),
+            (scale * (-z - reg * out[1][negids])).reshape(-1))
+
+    def library():
+        for table, i, v in zip((out[0], out[0], out[1], out[1]), ids, rows):
+            table.index_put_((i,), v, accumulate=True)
+
+    res["library_ms"] = cuda_ms(library, 10)
+    res["old_route_ms"] = cuda_ms(lambda: old_route(out), 10)
+    del rows, szx
+    nbytes = 2 * C * L * (4 + 8) + C * L * 4 + C * F * 4 + 2 * touched * (F + 1) * 4
+    res["bound_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+    say(2, f"{tag}: {res['kept']} of {2 * C * L} entries kept, {touched} rows touched; against "
+           f"a float64 sum, {share:.3f} of each element's float32 bound at most ({err:.3e} of "
+           f"scale; the four index_put_ {old_share:.3f}, {old_err:.3e}; one kept entry dropped "
+           f"{wrong_share:.3g}, rejected), {rows_as_old} of the touched rows bit for bit "
+           f"the index_put_ route's, the same bits twice; call {res['ms']:.4f} ms (graph "
+           f"{res['graph_ms']:.4f}; the two launches alone {res['launch_graph_ms']:.4f}), plain "
+           f"{res['plain_ms']:.4f}, four index_put_ {res['library_ms']:.4f} (with their "
+           f"arithmetic {res['old_route_ms']:.4f}); bound {res['bound_ms']:.4f} ms by bytes "
+           f"({nbytes / 1e6:.1f} MB), {100 * res['bound_ms'] / res['graph_ms']:.1f}% of it "
+           f"({100 * res['bound_ms'] / res['launch_graph_ms']:.1f}% of the launches alone)")
+    del inputs, Y, yb, out, keys, perm
+    torch.cuda.empty_cache()
+    return {"name": "bpr_item_update", "route": "cuda",
+            "source": "implicit_tpu_torch/ops/csrc/bpr_item_update.cu",
+            "replaces": "none: the grouped BPR epoch's four index_put_(accumulate=True) item "
+                        "scatters (models/bpr.py; the JAX package's epoch is plain XLA)",
+            "ms": res["ms"], "plain_ms": res["plain_ms"], "library_ms": res["library_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": "bytes", "max_abs_err": err, "shape": res}
 
 
 def expected_launches(csr, factors, compute_dtype, iterations, gather_quant=(False, False),
@@ -1561,13 +1712,24 @@ def sgd_quality(device, mesh=None, phase=5):
 def phase_sgd(device, plays):
     """The SGD families at the last.fm shape: BPR grouped (the same seed
     twice for the same bits) and sampled, LMF, each with one profiled epoch;
-    index_add_'s grouped epochs beside the deterministic accumulation;
-    recommend from both; the injected-draw check; clustered p@10."""
+    recommend from both; the injected-draw check; clustered p@10. The
+    first grouped fit's counters, set to 0 just before it and read just
+    after: one ``launches.bpr_item_update`` per ``bpr.chunk_steps`` and no
+    ``bpr.scatter_calls`` (its count is the kernels line's)."""
     import torch
 
-    from implicit_tpu_torch.models import bpr as bpr_mod
+    from implicit_tpu_torch.models import bpr
+    from implicit_tpu_torch.ops import bpr_update
 
+    bpr_update.LAUNCHES["bpr_item_update"] = 0
+    bpr.COUNTS.update(chunk_steps=0, scatter_calls=0)
     grouped, g_s, g_prof = bpr_fit("grouped", plays, device, "grouped", 4, profile_at=3)
+    launches, counts = bpr_update.LAUNCHES["bpr_item_update"], dict(bpr.COUNTS)
+    if not (launches == counts["chunk_steps"] > 0 and counts["scatter_calls"] == 0):
+        raise AssertionError(f"bpr grouped: {launches} bpr_item_update launches, counts {counts}: "
+                             f"not one launch a chunk update with no scatter calls")
+    say(5, f"bpr grouped: {launches} bpr_item_update launches in {counts['chunk_steps']} chunk "
+           f"updates, 0 scatter calls")
     again, _, _ = bpr_fit("grouped, the same seed again", plays, device, "grouped", 4)
     if not (np.array_equal(grouped.user_factors, again.user_factors)
             and np.array_equal(grouped.item_factors, again.item_factors)):
@@ -1580,21 +1742,6 @@ def phase_sgd(device, plays):
     sampled, s_s, s_prof = bpr_fit("sampled", plays, device, "sampled", 4, profile_at=3)
     del sampled
     s_prof.report("bpr sampled", s_s)
-
-    # the same grouped epochs with index_add_ (atomics on CUDA) accumulating
-    saved = bpr_mod._scatter_add
-    bpr_mod._scatter_add = lambda table, idx, values: table.index_add_(0, idx, values)
-    try:
-        fits = [bpr_fit(f"grouped with index_add_ ({k})", plays, device, "grouped", 3)
-                for k in (1, 2)]
-    finally:
-        bpr_mod._scatter_add = saved
-    same = all(np.array_equal(getattr(fits[0][0], f), getattr(fits[1][0], f))
-               for f in ("user_factors", "item_factors"))
-    say(5, f"bpr grouped accumulation: index_put_(accumulate=True) {g_s:.4f} s/epoch, "
-           f"index_add_ {fits[0][1]:.4f} / {fits[1][1]:.4f} s/epoch; two index_add_ fits "
-           f"{'give the same bits' if same else 'differ'}")
-    del fits
     torch.cuda.empty_cache()
 
     model, l_s, l_prof = lmf_fit(plays, device, iterations=6, profile_at=5)
@@ -1605,7 +1752,7 @@ def phase_sgd(device, plays):
 
     injected_draw_check(device)
     sgd_quality(device)
-    return dict(bpr_grouped=g_s, bpr_sampled=s_s, lmf=l_s)
+    return dict(bpr_grouped=g_s, bpr_sampled=s_s, lmf=l_s, bpr_item_update_launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -3619,6 +3766,7 @@ PTXAS_KERNELS = {
     "cg_update": {"cg_update_kernel": ("NP",), "yty_split_kernel": ()},
     "pcg64_uniform": {"pcg64_uniform_kernel": ("storage",)},
     "topk_select": {"topk_select_kernel": ("K",)},
+    "bpr_item_update": {"tiles_kernel": ("VEC",), "runs_kernel": ("VEC",)},
 }
 
 
@@ -3684,12 +3832,14 @@ def main():
     draw = phase_draw(device)
     selection = phase_topk(device)
     plays = lastfm_plays()
+    item_update = phase_bpr_update(device, plays)
     selects = topk.LAUNCHES["topk_select"]
     launches, f32_factors, phase3 = phase_main_path(device, plays)
     selection["launches"] = topk.LAUNCHES["topk_select"] - selects  # phase 3's serving
     phase_quality(device)
     phase_quality(device, gather_quant=True, dtype=np.float16)
     sgd = phase_sgd(device, plays)
+    item_update["launches"] = sgd["bpr_item_update_launches"]  # phase 5's first grouped fit
     item_item = phase_item_item(device, plays)
     phase_serving(device, plays, f32_factors)
     phase_idioms(device, plays, f32_factors)
@@ -3699,7 +3849,8 @@ def main():
     phase_bpr_variants(device, plays, sgd)
 
     draw["launches"] = launches["pcg64_uniform"]  # phase 3's and phase 9's fits
-    print(json.dumps({"kernels": kernel_rows(kernels, launches) + [draw, selection]}))
+    print(json.dumps({"kernels": kernel_rows(kernels, launches) + [draw, selection,
+                                                                   item_update]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,8 +37,11 @@ and ``BPR_SORT_SAMPLES`` (a stacked-table and a sorted-sample sampled
 epoch, measurement points it keeps off) are not ported (ROADMAP C29).
 
 Accumulation: rows that collide within a step sum their updates in an
-order fixed by the inputs (``_scatter_add``), so two fits with the same
-``random_state`` give the same bits. Each device needs its own op for that:
+order fixed by the inputs, so two fits with the same ``random_state`` give
+the same bits: the grouped epoch's item rows in pool mode 0 through
+:mod:`~implicit_tpu_torch.ops.bpr_update` (one fixed-order sum per touched
+row, a CUDA kernel on the card), every other update through
+``_scatter_add``. Each device needs its own op for that:
 on CUDA ``index_put_(accumulate=True)`` sorts the indices and sums each
 row's updates in order, where ``index_add_`` adds them with atomics; on the
 CPU ``index_add_`` adds the updates one by one in order, where
@@ -54,7 +57,7 @@ from tqdm.auto import tqdm
 
 from .. import tracing
 from .._device import full_f32_matmul
-from ..ops import membership
+from ..ops import bpr_update, membership
 from ..parallel.mesh import check_mesh_arg
 from ..sparse import pack_on_device
 from ..tracing import timed_step
@@ -80,7 +83,8 @@ _POOL_MODES = {1: 0, 2: 2, 3: 1}
 # the largest popularity snapshot the pool modes draw windows from
 _MAX_POOL = 1 << 21
 
-# the grouped epoch's counters: chunk updates, and calls of _scatter_add
+# the grouped epoch's counters: chunk updates, and calls of _scatter_add (the
+# pool modes' item updates)
 COUNTS = tracing.register("bpr", {"chunk_steps": 0, "scatter_calls": 0})
 
 
@@ -290,9 +294,18 @@ def _bpr_epoch_grouped(X, Y, yb, classes, itemids, indptr, table, draws, lr, reg
     too from ``Y[arrangement]`` (in mode 1 they stay live gathers). The
     updates land on the live Y and yb at the negatives' ids.
 
-    Each chunk's item updates (their arithmetic and the four scatters) run
-    inside a ``scatter`` span on X's device; ``COUNTS`` takes one
-    ``chunk_steps`` and four ``scatter_calls`` a chunk.
+    Item updates: in pool mode 0 every kept entry's update reads its item
+    row as the chunk found it (the gathers ``Yu``, ``Yn``, ``bl``, ``bn``),
+    so one :func:`~implicit_tpu_torch.ops.bpr_update.bpr_item_update` a
+    chunk adds each touched row's terms in a fixed order, from the chunk's
+    user rows and one coefficient an entry (on CUDA the kernel
+    ``csrc/bpr_item_update.cu``). In pool modes 1 and 2 the negatives'
+    regularization reads the epoch-start snapshot (their biases, in mode 2
+    their factors too), not the rows, so those updates stay four
+    ``_scatter_add`` calls over the entries' update rows.
+    Either runs inside a ``scatter`` span on X's device; ``COUNTS`` takes
+    one ``chunk_steps`` a chunk, and four ``scatter_calls`` a chunk of a
+    pool mode.
     """
     n_users, F = X.shape
     correct = torch.zeros((), dtype=torch.int64, device=X.device)
@@ -331,14 +344,18 @@ def _bpr_epoch_grouped(X, Y, yb, classes, itemids, indptr, table, draws, lr, reg
                 step = torch.bmm(sz[:, None, :], diff)[:, 0]
             X[crows[:nv]] = ((gamma ** n_keep)[:, None] * x + step)[:nv]
             with tracing.span("scatter", X.device):
-                szx = sz[:, :, None] * x[:, None, :]
-                sreg = (scale * reg)[:, :, None]
-                _scatter_add(Y, cidx.reshape(-1), (szx - sreg * Yu).reshape(-1, F))
-                _scatter_add(Y, negids.reshape(-1), (-szx - sreg * Yn).reshape(-1, F))
-                _scatter_add(yb, cidx.reshape(-1), (scale * (z - reg * bl)).reshape(-1))
-                _scatter_add(yb, negids.reshape(-1), (scale * (-z - reg * bn)).reshape(-1))
+                if pool_mode:
+                    szx = sz[:, :, None] * x[:, None, :]
+                    sreg = (scale * reg)[:, :, None]
+                    _scatter_add(Y, cidx.reshape(-1), (szx - sreg * Yu).reshape(-1, F))
+                    _scatter_add(Y, negids.reshape(-1), (-szx - sreg * Yn).reshape(-1, F))
+                    _scatter_add(yb, cidx.reshape(-1), (scale * (z - reg * bl)).reshape(-1))
+                    _scatter_add(yb, negids.reshape(-1), (scale * (-z - reg * bn)).reshape(-1))
+                else:
+                    bpr_update.bpr_item_update(Y, yb, x, z, cidx, negids, keep, lr, reg)
             COUNTS["chunk_steps"] += 1
-            COUNTS["scatter_calls"] += 4
+            if pool_mode:
+                COUNTS["scatter_calls"] += 4
     return correct, skipped
 
 

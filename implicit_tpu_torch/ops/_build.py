@@ -60,6 +60,9 @@ SIGNATURES = {
     # (scores, in_ids, rows, n, k, segs, excl_ptr, excl_ids, out_vals, out_ids, stream)
     "topk_select": {"topk_select": [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _P,
                                     _P, _P, _P, _P]},
+    # (keys, perm, z, x, Y, yb, part, part_floats, CL, L, F, n_items, lr, reg, stream)
+    "bpr_item_update": {"bpr_item_update": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I,
+                                            _I, _I, _I, _F, _F, _P]},
 }
 
 _libs = {}

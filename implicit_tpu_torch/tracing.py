@@ -33,7 +33,8 @@ device. BPR's ``fit`` (``models/bpr.py``, attr ``family`` "bpr") holds its
 set-up steps and an ``iteration`` per epoch (attrs ``chunks``, the epoch's
 update steps, and ``entries``, the positives visited), with a CUDA device;
 the grouped epoch's ``iteration`` holds a ``scatter`` per chunk (its item
-updates), with a CUDA device. ``recommend`` (a root) holds ``validate``,
+updates: in pool mode 0 the keys, their sort and the ``bpr_item_update``
+kernel; in the pool modes four ``_scatter_add`` calls), with a CUDA device. ``recommend`` (a root) holds ``validate``,
 ``user rows``, ``dispatch`` (with its ``topk``), ``wait`` and ``post``.
 
 Counters always count, a plain integer add each: ``device.mem_queries``
@@ -45,9 +46,12 @@ Counters always count, a plain integer add each: ``device.mem_queries``
 plain), ``topk.library_selects`` (one per
 selection left to ``torch.topk``, ``ops.topk.select_topk_plain``) and the
 groups that modules register, such as ``launches.<entry>``
-(``ops.cg_kernels.LAUNCHES``, ``ops.topk.LAUNCHES``) and ``bpr.chunk_steps``
+(``ops.cg_kernels.LAUNCHES``, ``ops.topk.LAUNCHES``, and
+``ops.bpr_update.LAUNCHES``: ``launches.bpr_item_update``, one per chunk
+update of BPR's grouped epoch taken by its kernel) and ``bpr.chunk_steps``
 and ``bpr.scatter_calls`` (``models.bpr.COUNTS``: one per chunk update of
-the grouped epoch, one per ``_scatter_add`` call there).
+the grouped epoch, one per ``_scatter_add`` call there, which only its pool
+modes make).
 
 :func:`timed_step` is the set-up steps' block: a span, and the debug line of
 its seconds.

@@ -37,7 +37,7 @@ from cfbench.reference import bpr as ref
 from implicit_tpu_torch.bpr import BayesianPersonalizedRanking
 from implicit_tpu_torch.datasets.synthetic import generate_synthetic
 from implicit_tpu_torch.models import bpr
-from implicit_tpu_torch.ops import membership
+from implicit_tpu_torch.ops import bpr_update, membership
 
 torch.set_num_threads(2)
 
@@ -118,16 +118,19 @@ def test_control_in_tf32_misses_an_update_limit():
                                                 "last_rel_fro")), numbers
 
 
-def _edited(*edits, **names):
-    """``_bpr_epoch_grouped`` with each (old, new) of ``edits`` made to its
-    source, compiled in the module's namespace plus ``names``."""
-    src = textwrap.dedent(inspect.getsource(bpr._bpr_epoch_grouped))
+def _edited(*edits, fn=None, **names):
+    """``fn`` (``_bpr_epoch_grouped`` by default) with each (old, new) of
+    ``edits`` made to its source, compiled in its module's namespace plus
+    ``names``."""
+    fn = fn or bpr._bpr_epoch_grouped
+    module = inspect.getmodule(fn)
+    src = textwrap.dedent(inspect.getsource(fn))
     for old, new in edits:
         assert src.count(old) == 1, old
         src = src.replace(old, new)
-    ns = {**vars(bpr), **names}
-    exec(compile(src, bpr.__file__, "exec"), ns)
-    return ns["_bpr_epoch_grouped"]
+    ns = {**vars(module), **names}
+    exec(compile(src, module.__file__, "exec"), ns)
+    return ns[fn.__name__]
 
 
 def _bf16(t):
@@ -159,8 +162,11 @@ FAULTS = {
                                                             _dropped_chunk())),
     "no_shrink": ("first_rel_fro", lambda mp: mp.setattr(bpr, "_bpr_epoch_grouped", _edited(
         ("(gamma ** n_keep)[:, None] * x + step", "x + step")))),
+    # the grouped epoch's item updates (pool mode 0) go through the op; on
+    # the CPU its plain version
     "flipped_negative_sign": ("first_rel_fro", lambda mp: mp.setattr(
-        bpr, "_bpr_epoch_grouped", _edited(("(-szx - sreg * Yn)", "(szx - sreg * Yn)")))),
+        bpr_update, "_kept_entries", _edited(("-z[keep]", "z[keep]"),
+                                             fn=bpr_update._kept_entries))),
     "bf16_products": ("first_rel_fro", lambda mp: mp.setattr(bpr, "_bpr_epoch_grouped", _edited(
         ("torch.bmm(diff, x[:, :, None])", "torch.bmm(_bf16(diff), _bf16(x[:, :, None]))"),
         ("torch.bmm(sz[:, None, :], diff)", "torch.bmm(_bf16(sz[:, None, :]), _bf16(diff))"),

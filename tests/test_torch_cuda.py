@@ -757,8 +757,10 @@ def test_lmf_class_update_with_injected_draws_on_cuda_matches_cpu(cuda, route):
                                     "bpr-grouped_pool_ids", "lmf"])
 def test_sgd_fits_repeat_bit_for_bit_on_cuda(cuda, family):
     """Two fits with the same random_state give the same bits on the card
-    (BPR accumulates colliding rows with index_put_(accumulate=True), which
-    sums in a fixed order), with the pinned columns intact, and serve."""
+    (BPR accumulates colliding rows in a fixed order: the grouped epoch's
+    item rows through the bpr_item_update kernel, every other update with
+    index_put_(accumulate=True)), with the pinned columns intact, and
+    serve."""
     from implicit_tpu_torch.bpr import BayesianPersonalizedRanking
     from implicit_tpu_torch.lmf import LogisticMatrixFactorization
 
@@ -783,6 +785,124 @@ def test_sgd_fits_repeat_bit_for_bit_on_cuda(cuda, family):
     ids, scores = model.recommend(np.arange(64), plays[:64], N=10)
     assert ids.shape == (64, 10) and np.isfinite(scores).all()
     assert not any(np.isin(ids[u], plays[u].indices).any() for u in range(64))
+
+
+# BPR's grouped item update: csrc/bpr_item_update.cu against its plain version
+
+
+def _bpr_item_chunks(cuda, F, seed):
+    """Inputs of ``bpr_item_update`` at the chunk shapes ``grouped_classes``
+    cuts from a power-law matrix (its item popularity ~ (rank + 20)^-0.8,
+    the benchmark data's law): each class's first and last chunk (the last
+    with its sentinel rows), negatives drawn by popularity as the epoch
+    draws them (``itemids[r]``), 5% of the valid entries skipped."""
+    from implicit_tpu_torch.datasets.synthetic import generate_synthetic
+    from implicit_tpu_torch.models import bpr
+
+    plays = generate_synthetic(30000, 6000, 900000, seed=seed)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, device=cuda)  # noqa: E731
+    itemids = t(plays.indices.astype(np.int64))
+    Y = t(rng.standard_normal((plays.shape[1], F), dtype=np.float32) * 0.1)
+    yb = t(rng.standard_normal(plays.shape[1], dtype=np.float32) * 0.1)
+    chunks = []
+    for _, idx, dat, _ in bpr.grouped_classes(plays, cuda):
+        for c in sorted({0, idx.shape[0] - 1}):
+            C, L = idx.shape[1:]
+            keep = (dat[c] != 0) & t(rng.random((C, L)) >= 0.05)
+            chunks.append((t(rng.standard_normal((C, F), dtype=np.float32) * 0.1),
+                           t(rng.random((C, L), dtype=np.float32)), idx[c],
+                           itemids[t(rng.integers(0, plays.nnz, (C, L)))], keep))
+    return Y, yb, chunks
+
+
+@pytest.mark.parametrize("F", [128, 100, 130, 512])
+def test_bpr_item_update_matches_plain(cuda, F):
+    """One launch pair a call. Against the plain version's arithmetic summed
+    in float64 (``bpr_update.bpr_item_update_reference``), every element within
+    the float32 bound of its row's sum in any order (n + 4) 2^-24 (|row| +
+    sum |terms|), as the four ``index_put_(accumulate=True)`` calls it
+    replaces and the plain version are: a hot row sums hundreds of terms,
+    so any two float32 orders of it differ by about 1e-6 of the table's
+    scale (on an H100, kernel and plain version 9.5e-7 apart where 1e-6 of
+    scale was 7.4e-7), while one term dropped moves an element by
+    thousands of bounds. The rows no kept
+    entry names keep their bits. F = 130: the kernel's float route; 512:
+    four column slabs."""
+    from test_torch_bpr_item_update import _four_scatters
+
+    from implicit_tpu_torch.ops import bpr_update
+
+    Y, yb, chunks = _bpr_item_chunks(cuda, F, seed=F)
+    assert len(chunks) > 2
+    for x, z, cidx, negids, keep in chunks:
+        args = (x, z, cidx, negids, keep, 0.05, 0.04)
+        before = bpr_update.LAUNCHES["bpr_item_update"]
+        got = [Y.clone(), yb.clone()]
+        bpr_update.bpr_item_update(*got, *args)
+        torch.cuda.synchronize()
+        assert bpr_update.LAUNCHES["bpr_item_update"] == before + 1
+        plain, old = [Y.clone(), yb.clone()], [Y.clone(), yb.clone()]
+        bpr_update.bpr_item_update_plain(*plain, *args)
+        _four_scatters(*old, *args)
+        ref = bpr_update.bpr_item_update_reference(Y, yb, *args)
+        shares = [bpr_update.bound_share(t, ref) for t in (got, plain, old)]
+        assert max(shares) <= 1, shares
+        kept = torch.zeros(Y.shape[0], dtype=torch.bool, device=cuda)
+        kept[torch.cat((cidx[keep], negids[keep]))] = True
+        for g, start in zip(got, (Y, yb)):
+            assert torch.equal(g[~kept].view(torch.int32), start[~kept].view(torch.int32))
+            assert not torch.equal(g, start)
+
+
+def test_bpr_item_update_repeats_bit_for_bit(cuda):
+    """Two calls on the same inputs give the same bits (no atomics)."""
+    from implicit_tpu_torch.ops import bpr_update
+
+    Y, yb, chunks = _bpr_item_chunks(cuda, 128, seed=3)
+    for chunk in chunks:
+        runs = []
+        for _ in range(2):
+            out = [Y.clone(), yb.clone()]
+            bpr_update.bpr_item_update(*out, *chunk, 0.01, 0.01)
+            runs.append(out)
+        for a, b in zip(*runs):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_grouped_fit_on_cuda_updates_items_through_the_kernel(cuda):
+    """A grouped fit on the card: one ``launches.bpr_item_update`` a chunk
+    update (``bpr.chunk_steps``), no ``bpr.scatter_calls``; a pool mode
+    keeps its four scatters a chunk and launches nothing."""
+    from implicit_tpu_torch import tracing
+    from implicit_tpu_torch.bpr import BayesianPersonalizedRanking
+
+    plays = _sgd_plays(seed=8)
+    for mode in ("grouped", "grouped_pool"):
+        before = tracing.counters()
+        BayesianPersonalizedRanking(factors=64, iterations=3, random_state=3, epoch_mode=mode,
+                                    device=cuda).fit(plays, show_progress=False)
+        moved = {k: v - before[k] for k, v in tracing.counters().items()
+                 if k in ("bpr.chunk_steps", "bpr.scatter_calls", "launches.bpr_item_update")}
+        steps = moved["bpr.chunk_steps"]
+        assert steps > 0
+        if mode == "grouped":
+            assert moved == {"bpr.chunk_steps": steps, "bpr.scatter_calls": 0,
+                             "launches.bpr_item_update": steps}
+        else:
+            assert moved == {"bpr.chunk_steps": steps, "bpr.scatter_calls": 4 * steps,
+                             "launches.bpr_item_update": 0}
+
+
+def test_bpr_item_update_refuses_what_it_does_not_take(cuda):
+    from implicit_tpu_torch.ops import bpr_update
+
+    Y, yb, chunks = _bpr_item_chunks(cuda, 128, seed=4)
+    x, z, cidx, negids, keep = chunks[0]
+    with pytest.raises(ValueError):
+        bpr_update.bpr_item_update(Y[:, ::2], yb, x[:, ::2], z, cidx, negids, keep, 0.01, 0.01)
+    with pytest.raises(ValueError):
+        bpr_update.bpr_item_update(Y, yb, x, z, cidx.cpu(), negids, keep, 0.01, 0.01)
 
 
 def test_membership_lookup_on_cuda_matches_numpy(cuda):

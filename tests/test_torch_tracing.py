@@ -18,7 +18,7 @@ from implicit_tpu_torch.als import AlternatingLeastSquares
 from implicit_tpu_torch.bpr import BayesianPersonalizedRanking
 from implicit_tpu_torch.datasets.synthetic import generate_synthetic
 from implicit_tpu_torch.models import bpr
-from implicit_tpu_torch.ops import cg_kernels, topk
+from implicit_tpu_torch.ops import bpr_update, cg_kernels, topk
 from implicit_tpu_torch.ops.topk import _score_budget_elements
 
 torch.set_num_threads(2)
@@ -105,9 +105,10 @@ def test_bpr_fit_span_tree(epoch_mode):
     """BPR's fit: one root ``fit``, its set-up steps, one ``iteration`` per
     epoch (CPU: no device seconds) and the copy back; a grouped epoch holds
     one ``scatter`` per chunk and counts ``bpr.chunk_steps`` (chunks x
-    epochs) and ``bpr.scatter_calls`` (four a chunk), the sampled epoch
-    neither. With the profiler off the counters still count and no span is
-    recorded."""
+    epochs) and no ``bpr.scatter_calls`` (its item updates go through
+    ``ops.bpr_update``; on the CPU its plain version, no launch), the
+    sampled epoch neither. With the profiler off the counters still count
+    and no span is recorded."""
     grouped = epoch_mode == "grouped"
     n_chunks = sum(rows.shape[0] for rows, *_ in bpr.grouped_classes(PLAYS, "cpu"))
 
@@ -119,8 +120,9 @@ def test_bpr_fit_span_tree(epoch_mode):
     with _profiled():
         fit()
     moved = {k: v - before[k] for k, v in tracing.counters().items() if k.startswith("bpr.")}
-    assert moved == ({"bpr.chunk_steps": 3 * n_chunks, "bpr.scatter_calls": 12 * n_chunks}
+    assert moved == ({"bpr.chunk_steps": 3 * n_chunks, "bpr.scatter_calls": 0}
                      if grouped else {"bpr.chunk_steps": 0, "bpr.scatter_calls": 0})
+    assert tracing.counters()["launches.bpr_item_update"] == before["launches.bpr_item_update"]
     spans = tracing.spans()
     root, = [s for s in spans if s["parent"] is None]
     assert root["name"] == "fit" and root["counts"] == {k: v for k, v in moved.items() if v}
@@ -215,27 +217,29 @@ def test_pipelined_batches_each_have_a_root():
 
 
 def test_launches_are_the_kernels_own_counts(monkeypatch):
-    """``launches.<entry>`` reads ``cg_kernels.LAUNCHES`` and the top-k's
-    ``topk.LAUNCHES`` themselves, reset and all, and a span counts the
-    launches inside it."""
-    for group in (cg_kernels.LAUNCHES, topk.LAUNCHES):
+    """``launches.<entry>`` reads ``cg_kernels.LAUNCHES``, the top-k's
+    ``topk.LAUNCHES`` and BPR's item update's ``bpr_update.LAUNCHES``
+    themselves, reset and all, and a span counts the launches inside it."""
+    for group in (cg_kernels.LAUNCHES, topk.LAUNCHES, bpr_update.LAUNCHES):
         for name in group:
             monkeypatch.setitem(group, name, group[name])
     cg_kernels.reset_launches()
     topk.LAUNCHES["topk_select"] = 0
+    bpr_update.LAUNCHES["bpr_item_update"] = 0
     counts = tracing.counters()
     assert {k for k in counts if k.startswith("launches.")} == {
-        f"launches.{k}" for k in (*cg_kernels.LAUNCHES, "topk_select")}
+        f"launches.{k}" for k in (*cg_kernels.LAUNCHES, "topk_select", "bpr_item_update")}
     assert not any(counts[k] for k in counts if k.startswith("launches."))
     with _profiled():
         with tracing.span("solves"):
             cg_kernels.LAUNCHES["cg_full_f32"] += 3
             cg_kernels.LAUNCHES["cg_update"] += 1
             topk.LAUNCHES["topk_select"] += 2
+            bpr_update.LAUNCHES["bpr_item_update"] += 4
     assert tracing.counters()["launches.cg_full_f32"] == 3
     span, = tracing.spans()
     assert span["counts"] == {"launches.cg_full_f32": 3, "launches.cg_update": 1,
-                              "launches.topk_select": 2}
+                              "launches.topk_select": 2, "launches.bpr_item_update": 4}
 
 
 def test_each_free_memory_query_is_counted(monkeypatch):
