@@ -27,22 +27,32 @@ and the weights left in row shards for the top-K.
 Where ``X^T X + lam I`` is not positive definite (``lam = 0`` on a singular
 gramian), the fit raises :class:`~implicit_tpu_torch.recommender_base.ModelFitError`;
 the JAX package's factorization returns NaN weights there instead.
+
+A traced fit is one ``fit`` span (attrs ``family`` "ease", users, items,
+nnz, K, regularization) over its steps, in order: the set-up steps
+``prepare`` (the input check and the binarizing copy) and ``upload`` (the
+CSR to the card); the model steps (attr ``stage`` "model step", with CUDA
+events) ``gramian``, ``cholesky``, ``inverse`` (meshed: ``column solves``),
+``weights`` and ``top-k`` (the selection on the card); the set-up step
+``copy back`` (the selection to the host, and its CSR). Each logs
+``"item-item fit <step> in <s> s"`` at debug level.
 """
 
 import numpy as np
 import torch
 
+from . import tracing
 from ._device import resolve_device
 from .nearest_neighbours import (
-    _STAGE,
     ItemItemRecommender,
     _dense_gramian_device,
     _dense_topk_to_coo,
     _dense_topk_to_coo_meshed,
+    _model_step,
+    _set_up_step,
 )
 from .parallel.mesh import check_mesh_arg, resolve_mesh
 from .recommender_base import ModelFitError
-from .tracing import timed_step
 from .utils import check_csr
 
 # the solve holds about 3 (items x items) float32 buffers (gramian, factor,
@@ -152,18 +162,18 @@ def _ease_B_meshed(user_items, regularization, mesh, serve_diag=False):
     devices = mesh.distinct()
     S, block = _dense_gramian_meshed(user_items, mesh)
     own = [torch.arange(k * block, (k + 1) * block, device=d) for k, d in enumerate(mesh.devices)]
-    with timed_step("cholesky", devices, stage=_STAGE):
+    with _model_step("cholesky", devices):
         gathered = {d: torch.cat([s.to(d) for s in S])[:items] for d in devices}
         del S
         L = {d: _factor(gathered.pop(d), regularization) for d in devices}
-    with timed_step("column solves", devices, stage=_STAGE):
+    with _model_step("column solves", devices):
         P = []
         for j, d in zip(own, mesh.devices):
             eye = (torch.arange(items, device=d)[:, None] == j[None, :]).to(torch.float32)
             P.append(torch.cholesky_solve(eye, L[d]))  # (items, block): P[:, j]
             del eye
         del L
-    with timed_step("weights", devices, stage=_STAGE):
+    with _model_step("weights", devices):
         cols = [j.clamp(max=items - 1) for j in own]  # padding rows read the last column
         diag = [torch.where(j < items, Pk[c, torch.arange(block, device=j.device)], 1.0)
                 for j, c, Pk in zip(own, cols, P)]
@@ -186,13 +196,13 @@ def _ease_solve(S, regularization):
     in place of the inverse. Pass the only reference to ``S``, so that each
     (items x items) buffer is freed once the next exists."""
     device = S.device
-    with timed_step("cholesky", device, stage=_STAGE):
+    with _model_step("cholesky", device):
         L = _factor(S, regularization)
         del S
-    with timed_step("inverse", device, stage=_STAGE):
+    with _model_step("inverse", device):
         P = torch.cholesky_inverse(L)
         del L
-    with timed_step("weights", device, stage=_STAGE):
+    with _model_step("weights", device):
         B = P.div_(P.diagonal().clone()).neg_()  # -P_ij / P_jj, in place
         B.diagonal().zero_()
     return B
@@ -237,34 +247,36 @@ class EASERecommender(ItemItemRecommender):
         if callback:
             raise NotImplementedError("callback isn't supported on EASERecommender.fit")
 
-        user_items = check_csr(user_items)
-        if self.binarize:
-            user_items = user_items.copy()
-            user_items.data = np.ones_like(user_items.data)
+        with tracing.span("fit", family="ease", K=self.K,
+                          regularization=self.regularization) as fit_span:
+            with _set_up_step("prepare", self.device):
+                user_items = check_csr(user_items)
+                if self.binarize:
+                    user_items = user_items.copy()
+                    user_items.data = np.ones_like(user_items.data)
+            users, items = user_items.shape
+            fit_span.set(users=users, items=items, nnz=user_items.nnz)
 
-        items = user_items.shape[1]
-        mesh = _resolve_ease_mesh(self._fit_mesh(), self.device)
-        if mesh is not None:
-            _check_ease_cap(items, mesh)
-            # the diagonal (serve_diag) and the top-K run in the row shards;
-            # negatives are meaningful in EASE: keep all the top-K selects
-            B = _ease_B_meshed(user_items, self.regularization, mesh, serve_diag=True)
-            with timed_step("top-k", mesh.distinct(), stage=_STAGE):
+            mesh = _resolve_ease_mesh(self._fit_mesh(), self.device)
+            if mesh is not None:
+                _check_ease_cap(items, mesh)
+                # the diagonal (serve_diag) and the top-K run in the row shards;
+                # negatives are meaningful in EASE: keep all the top-K selects
+                B = _ease_B_meshed(user_items, self.regularization, mesh, serve_diag=True)
                 self.similarity = _dense_topk_to_coo_meshed(
-                    B, items, int(self.K), mesh, keep="nonzero").tocsr()
-            return
+                    B, items, int(self.K), mesh, keep="nonzero", fmt="csr")
+                return
 
-        B = ease_weights(user_items, self.regularization, device=self.device)
+            B = ease_weights(user_items, self.regularization, device=self.device)
 
-        # serving parity with the KNN family: the stored similarity's
-        # diagonal is the item's self-affinity (strictly above its row max,
-        # so similar_items ranks the item itself first). It only affects
-        # already-liked candidates, which recommend() filters by default.
-        B.diagonal().copy_(torch.clamp(B.max(dim=1).values, min=0.0) + 1.0)
+            # serving parity with the KNN family: the stored similarity's
+            # diagonal is the item's self-affinity (strictly above its row max,
+            # so similar_items ranks the item itself first). It only affects
+            # already-liked candidates, which recommend() filters by default.
+            B.diagonal().copy_(torch.clamp(B.max(dim=1).values, min=0.0) + 1.0)
 
-        # negatives are meaningful in EASE: keep everything the top-K selects
-        with timed_step("top-k", self.device, stage=_STAGE):
-            self.similarity = _dense_topk_to_coo(B, int(self.K), keep="nonzero").tocsr()
+            # negatives are meaningful in EASE: keep everything the top-K selects
+            self.similarity = _dense_topk_to_coo(B, int(self.K), keep="nonzero", fmt="csr")
 
     def _save_args(self):
         return {

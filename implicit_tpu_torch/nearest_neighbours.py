@@ -32,6 +32,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from . import tracing
 from ._device import full_f32_matmul, resolve_device
 from .models.bpr import _scatter_add
 from .ops.topk import NEG_MAX, _score_budget_elements
@@ -42,8 +43,21 @@ from .utils import _batch_call, _filter_items_from_results, check_csr
 
 _NEG_MAX64 = -np.finfo(np.float64).max
 
-# the log stage of the similarity build's steps (``tracing.timed_step``)
-_STAGE = "item-item fit"
+# the debug lines' prefix of the similarity build's steps, set-up and model
+# steps alike (``tracing.timed_step``: "item-item fit <step> in <s> s")
+_LINE = "item-item fit"
+
+
+def _set_up_step(step, device):
+    """A set-up step of the similarity build (span attr ``stage`` "fit
+    set-up"): host work and copies."""
+    return timed_step(step, device, line=_LINE)
+
+
+def _model_step(step, device):
+    """A model step of the similarity build (span attr ``stage`` "model
+    step"): the card's arithmetic, with CUDA events on a CUDA ``device``."""
+    return timed_step(step, device, stage="model step", line=_LINE)
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +204,9 @@ def _all_pairs_knn_host(user_items, K, num_threads=0):
 _DEVICE_KNN_MAX_ITEMS = 36_000
 # float32 elements per densified user chunk (2 GB; tests shrink it)
 _DEVICE_KNN_DENSE_BYTES = 1 << 29
+# elements of one row block of a dense top-K selection (128 MiB of float32;
+# tests shrink it)
+_TOPK_BLOCK_ELEMENTS = 1 << 25
 
 # The cost rule's constants, measured by chip_smoke.py phase 6 on an NVIDIA
 # H100 80GB HBM3 at 700 W (its host: 8 cores) at the ML-20M shape (138k x
@@ -256,41 +273,54 @@ def _device_knn_wins(csr, device, num_threads=0, n_shards=1):
 def _dense_gramian_device(user_items, device):
     """Dense item gramian ``AᵀA`` (float32) on ``device``.
 
-    The CSR's arrays are uploaded once; each chunk of
-    ``_DEVICE_KNN_DENSE_BYTES // items`` users is sliced from them by
-    ``indptr`` (int64 offsets, so no 2**31 limit), densified into one reused
-    (chunk, items) buffer with an accumulating scatter (a CSR may hold
-    duplicate entries, which add, as in the JAX package's scatter; the sum's
-    order is fixed: ``models.bpr._scatter_add``), and accumulated as
-    ``S += DᵀD`` in full float32. Shared by the device KNN route and EASE
-    (:mod:`implicit_tpu_torch.ease`); logs ``"item-item fit gramian in ...
+    The CSR's arrays are uploaded once (the set-up step "upload",
+    :func:`_upload_csr`); each chunk of ``_DEVICE_KNN_DENSE_BYTES // items``
+    users is sliced from them by ``indptr`` (int64 offsets, so no 2**31
+    limit), densified into one reused (chunk, items) buffer with an
+    accumulating scatter (a CSR may hold duplicate entries, which add, as in
+    the JAX package's scatter; the sum's order is fixed:
+    ``models.bpr._scatter_add``), and accumulated as ``S += DᵀD`` in full
+    float32 (the model step "gramian", which holds no copy). Shared by the
+    device KNN route and EASE (:mod:`implicit_tpu_torch.ease`); logs
+    ``"item-item fit upload in ... s"`` and ``"item-item fit gramian in ...
     s"`` at debug level.
     """
-    users, items = user_items.shape
-    with timed_step("gramian", device, stage=_STAGE):
+    items = user_items.shape[1]
+    with _set_up_step("upload", device):
+        csr = _upload_csr(user_items, device)
+    with _model_step("gramian", device):
         S = torch.zeros((items, items), dtype=torch.float32, device=device)
-        for block in _densified_chunks(user_items, device, items):
+        for block in _densified_chunks(csr, items):
             with full_f32_matmul():
                 S.addmm_(block.T, block)
     return S
 
 
-def _densified_chunks(user_items, device, width):
-    """Yields the CSR's user chunks (``_DEVICE_KNN_DENSE_BYTES // items``
-    rows each) densified on ``device`` as (rows, ``width``) float32 views of
-    one reused buffer; columns past the matrix's stay zero. The arrays are
-    uploaded once and each chunk sliced from them by ``indptr`` (int64
-    offsets); entries add in the order ``models.bpr._scatter_add`` fixes,
-    duplicates included."""
-    users, items = user_items.shape
-    chunk = max(8, min(users, _DEVICE_KNN_DENSE_BYTES // max(items, 1)))
+def _upload_csr(user_items, device):
+    """The CSR on ``device`` for :func:`_densified_chunks`: (its shape, the
+    host's int64 ``indptr``, and each entry's row, column and value on the
+    device)."""
+    users = user_items.shape[0]
     indptr = np.asarray(user_items.indptr, dtype=np.int64)
     counts = torch.as_tensor(np.diff(indptr), device=device)
     cols = torch.as_tensor(np.asarray(user_items.indices, dtype=np.int32), device=device)
     vals = torch.as_tensor(np.asarray(user_items.data, dtype=np.float32), device=device)
     rows = torch.repeat_interleave(torch.arange(users, device=device), counts,
                                    output_size=int(indptr[-1]))
-    D = torch.empty((min(chunk, users), width), dtype=torch.float32, device=device)
+    return user_items.shape, indptr, rows, cols, vals
+
+
+def _densified_chunks(csr, width):
+    """Yields the uploaded CSR's (:func:`_upload_csr`) user chunks
+    (``_DEVICE_KNN_DENSE_BYTES // items`` rows each) densified on its
+    device as (rows, ``width``) float32 views of one reused buffer; columns
+    past the matrix's stay zero. Each chunk is sliced from the arrays by
+    ``indptr`` (int64 offsets), its entries added in the order
+    ``models.bpr._scatter_add`` fixes, duplicates included, and counted by
+    ``gramian.dense_chunks``."""
+    (users, items), indptr, rows, cols, vals = csr
+    chunk = max(8, min(users, _DEVICE_KNN_DENSE_BYTES // max(items, 1)))
+    D = torch.empty((min(chunk, users), width), dtype=torch.float32, device=rows.device)
     for start in range(0, users, chunk):
         stop = min(start + chunk, users)
         lo, hi = int(indptr[start]), int(indptr[stop])
@@ -298,6 +328,7 @@ def _densified_chunks(user_items, device, width):
         block.zero_()
         flat = (rows[lo:hi] - start) * width + cols[lo:hi]
         _scatter_add(block.view(-1), flat, vals[lo:hi])
+        tracing.count("gramian.dense_chunks")
         yield block
 
 
@@ -311,15 +342,17 @@ def _dense_gramian_meshed(user_items, mesh):
     zeros, and each shard accumulates ``S_k += D[:, rows_k]ᵀ D`` in full
     float32: the flops divide by D, and no collective runs. Returns the
     shards in shard order and ``block``; rows past ``items`` (in the last
-    shards) are zero. Logs the step "gramian".
+    shards) are zero. Logs the steps "upload" (the CSR to each distinct
+    device) and "gramian".
     """
-    users, items = user_items.shape
+    items = user_items.shape[1]
     block = max(1, -(-items // mesh.size))
     devices = mesh.distinct()
-    with timed_step("gramian", devices, stage=_STAGE):
+    with _set_up_step("upload", devices):
+        csrs = [_upload_csr(user_items, d) for d in devices]
+    with _model_step("gramian", devices):
         S = [torch.zeros((block, items), dtype=torch.float32, device=d) for d in mesh.devices]
-        for blocks in zip(*(_densified_chunks(user_items, d, mesh.size * block)
-                            for d in devices)):
+        for blocks in zip(*(_densified_chunks(csr, mesh.size * block) for csr in csrs)):
             dense = dict(zip(devices, blocks))
             for k, d in enumerate(mesh.devices):
                 with full_f32_matmul():
@@ -327,33 +360,40 @@ def _dense_gramian_meshed(user_items, mesh):
     return S, block
 
 
-def _dense_topk_to_coo(S, K, keep="positive"):
+def _dense_topk_to_coo(S, K, keep="positive", fmt="coo"):
     """K-sparsifies a dense (items x items) device matrix into COO triples.
 
-    ``torch.topk`` over row blocks; ``keep`` selects which of the K values
-    survive: "positive" (similarity gramians: only co-occurring pairs carry
-    signal) or "nonzero" (signed weight matrices, e.g. EASE). One copy back
-    at the end; the values come back as float64, as in the JAX package.
-    Exact ties at the K-th value may select other columns than JAX's
-    ``lax.top_k``, which prefers the lower index.
+    ``torch.topk`` over row blocks (the model step "top-k"); ``keep``
+    selects which of the K values survive: "positive" (similarity gramians:
+    only co-occurring pairs carry signal) or "nonzero" (signed weight
+    matrices, e.g. EASE). One copy back at the end (the set-up step "copy
+    back", which also builds the host matrix, in the scipy format ``fmt``);
+    the values come back as float64, as in the JAX package. Exact ties at
+    the K-th value may select other columns than JAX's ``lax.top_k``, which
+    prefers the lower index.
     """
     items = S.shape[0]
     k = min(K, items)
     if k <= 0:
-        return sp.coo_matrix((items, items), dtype=np.float64)
-    return _topk_coo(*_topk_rows(S, k), items, keep)
+        return sp.coo_matrix((items, items), dtype=np.float64).asformat(fmt)
+    with _model_step("top-k", S.device):
+        vals, cols = _topk_rows(S, k)
+    with _set_up_step("copy back", S.device):
+        return _topk_coo(vals, cols, items, keep).asformat(fmt)
 
 
 def _topk_rows(S, k):
     """``torch.topk`` of every row of the (rows, items) device matrix ``S``,
-    over row blocks: (values, columns) on S's device."""
+    over row blocks, each counted by ``topk.library_selects``: (values,
+    columns) on S's device."""
     n_rows, items = S.shape
-    row_block = max(8, min(n_rows, (1 << 25) // max(items, 1)))
+    row_block = max(8, min(n_rows, _TOPK_BLOCK_ELEMENTS // max(items, 1)))
     vals = torch.empty((n_rows, k), dtype=S.dtype, device=S.device)
     cols = torch.empty((n_rows, k), dtype=torch.int64, device=S.device)
     for start in range(0, n_rows, row_block):
         stop = min(start + row_block, n_rows)
         vals[start:stop], cols[start:stop] = torch.topk(S[start:stop], k, dim=1)
+        tracing.count("topk.library_selects")
     return vals, cols
 
 
@@ -370,31 +410,33 @@ def _topk_coo(vals, cols, items, keep):
     )
 
 
-def _dense_topk_to_coo_meshed(S, items, K, mesh, keep="positive"):
+def _dense_topk_to_coo_meshed(S, items, K, mesh, keep="positive", fmt="coo"):
     """K-sparsifies a row-sharded matrix (``S[k]`` shard k's (block, items)
     rows on its device, :func:`_dense_gramian_meshed`) into COO triples:
-    ``torch.topk`` on each shard's rows, the results gathered in shard order
-    on the host, the padding rows (past ``items``) dropped, ``keep`` as in
+    ``torch.topk`` on each shard's rows (the model step "top-k"), the
+    results gathered in shard order on the host and the padding rows (past
+    ``items``) dropped (the step "copy back"), ``keep`` and ``fmt`` as in
     :func:`_dense_topk_to_coo`."""
     k = min(K, items)
     if k <= 0:
-        return sp.coo_matrix((items, items), dtype=np.float64)
-    parts = [_topk_rows(Sk, k) for Sk in S]
-    return _topk_coo(torch.cat([v.cpu() for v, _ in parts]),
-                     torch.cat([c.cpu() for _, c in parts]), items, keep)
+        return sp.coo_matrix((items, items), dtype=np.float64).asformat(fmt)
+    devices = mesh.distinct()
+    with _model_step("top-k", devices):
+        parts = [_topk_rows(Sk, k) for Sk in S]
+    with _set_up_step("copy back", devices):
+        return _topk_coo(torch.cat([v.cpu() for v, _ in parts]),
+                         torch.cat([c.cpu() for _, c in parts]), items, keep).asformat(fmt)
 
 
 def _all_pairs_knn_device(user_items, K, device, mesh=None):
     """Exact AᵀA top-K on ``device``: the dense gramian over densified
-    chunks (:func:`_dense_gramian_device`), then :func:`_dense_topk_to_coo`
-    (logged as the step "top-k"); over ``mesh``, their row-sharded twins."""
+    chunks (:func:`_dense_gramian_device`), then :func:`_dense_topk_to_coo`;
+    over ``mesh``, their row-sharded twins."""
     if mesh is not None:
         S, _ = _dense_gramian_meshed(user_items, mesh)
-        with timed_step("top-k", mesh.distinct(), stage=_STAGE):
-            return _dense_topk_to_coo_meshed(S, user_items.shape[1], K, mesh, keep="positive")
+        return _dense_topk_to_coo_meshed(S, user_items.shape[1], K, mesh, keep="positive")
     S = _dense_gramian_device(user_items, device)
-    with timed_step("top-k", device, stage=_STAGE):
-        return _dense_topk_to_coo(S, K, keep="positive")
+    return _dense_topk_to_coo(S, K, keep="positive")
 
 
 # ---------------------------------------------------------------------------
@@ -528,18 +570,25 @@ class ItemItemRecommender(RecommenderBase):
         return counts
 
     def fit(self, counts, show_progress=True, callback=None):
-        """Computes and stores the K-sparsified item-item similarity matrix."""
+        """Computes and stores the K-sparsified item-item similarity matrix.
+
+        Traced as one ``fit`` span (attr ``family`` "item-item"): the set-up
+        step ``prepare`` (the input check and the weighting transform), then
+        the device route's steps (:func:`all_pairs_knn`)."""
         if callback:
             raise NotImplementedError("callback isn't supported on ItemItemRecommender.fit")
 
-        # warn about the user's input format here, then convert the weighting
-        # transform's own coo/csc output silently
-        counts = check_csr(counts)
-        weighted = sp.csr_matrix(self._weighted(counts))
-        self.similarity = all_pairs_knn(
-            weighted, self.K, show_progress=show_progress,
-            num_threads=self.num_threads, mesh=self._fit_mesh(), device=self.device,
-        ).tocsr()
+        with tracing.span("fit", family="item-item", K=self.K) as fit_span:
+            with _set_up_step("prepare", self.device):
+                # warn about the user's input format here, then convert the
+                # weighting transform's own coo/csc output silently
+                counts = check_csr(counts)
+                weighted = sp.csr_matrix(self._weighted(counts))
+            fit_span.set(users=weighted.shape[0], items=weighted.shape[1], nnz=weighted.nnz)
+            self.similarity = all_pairs_knn(
+                weighted, self.K, show_progress=show_progress,
+                num_threads=self.num_threads, mesh=self._fit_mesh(), device=self.device,
+            ).tocsr()
 
     def _fit_mesh(self):
         """The model's ``mesh`` resolved on its device (a virtual mesh where

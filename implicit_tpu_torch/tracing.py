@@ -34,7 +34,13 @@ set-up steps and an ``iteration`` per epoch (attrs ``chunks``, the epoch's
 update steps, and ``entries``, the positives visited), with a CUDA device;
 the grouped epoch's ``iteration`` holds a ``scatter`` per chunk (its item
 updates: in pool mode 0 the keys, their sort and the ``bpr_item_update``
-kernel; in the pool modes four ``_scatter_add`` calls), with a CUDA device. ``recommend`` (a root) holds ``validate``,
+kernel; in the pool modes four ``_scatter_add`` calls), with a CUDA device.
+The item-item fits' ``fit`` (``ease.py``, attr ``family`` "ease";
+``nearest_neighbours.py``, ``family`` "item-item") holds the similarity
+build's steps: set-up steps (``prepare``, ``upload``, ``copy back``) and
+model steps (attr ``stage`` "model step", with a CUDA device: ``gramian``,
+EASE's ``cholesky``, ``inverse`` or ``column solves``, ``weights``, and
+``top-k``). ``recommend`` (a root) holds ``validate``,
 ``user rows``, ``dispatch`` (with its ``topk``), ``wait`` and ``post``.
 
 Counters always count, a plain integer add each: ``device.mem_queries``
@@ -44,7 +50,11 @@ Counters always count, a plain integer add each: ``device.mem_queries``
 ``copy_back.plain_bytes`` (each fitted ALS table's bytes, by the route
 ``_device.to_host`` copied it to the host: through the pinned ring, or
 plain), ``topk.library_selects`` (one per
-selection left to ``torch.topk``, ``ops.topk.select_topk_plain``) and the
+selection left to ``torch.topk``: ``ops.topk.select_topk_plain``, and each
+row block of an item-item similarity's top-K,
+``nearest_neighbours._topk_rows``), ``gramian.dense_chunks`` (one per user
+chunk densified for an item-item gramian on one device,
+``nearest_neighbours._densified_chunks``) and the
 groups that modules register, such as ``launches.<entry>``
 (``ops.cg_kernels.LAUNCHES``, ``ops.topk.LAUNCHES``, and
 ``ops.bpr_update.LAUNCHES``: ``launches.bpr_item_update``, one per chunk
@@ -69,12 +79,13 @@ import torch
 log = logging.getLogger("implicit_tpu_torch")
 
 # spans kept, the newest; a profiled ALS fit records about 30, a grouped
-# BPR fit at the last.fm shape about 1,400, a profiled request 7
+# BPR fit at the last.fm shape about 1,400, an EASE fit 9, a profiled
+# request 7
 MAX_SPANS = 50_000
 
 _COUNTS = {"copy_back.plain_bytes": 0, "copy_back.staged_bytes": 0, "device.mem_queries": 0,
-           "init.device_draws": 0, "init.host_draws": 0, "topk.library_selects": 0,
-           "tracing.dropped": 0}
+           "gramian.dense_chunks": 0, "init.device_draws": 0, "init.host_draws": 0,
+           "topk.library_selects": 0, "tracing.dropped": 0}
 _GROUPS = []  # (prefix, counts)
 _spans = collections.deque()
 _ids = itertools.count(1)
@@ -232,12 +243,12 @@ def clear():
 
 
 @contextlib.contextmanager
-def timed_step(step, device, stage="fit set-up"):
-    """A set-up step: the span ``step`` (attr ``stage``) on ``device``, and a
-    debug line of the block's seconds, ``"<stage> %s in %.4f s"`` (args: the
-    step's name, the seconds): ``"fit set-up %s in %.4f s"`` for the factor
-    models' set-up, ``"item-item fit ..."`` for the steps of an item-item
-    similarity build.
+def timed_step(step, device, stage="fit set-up", line=None):
+    """A step of a fit: the span ``step`` (attr ``stage``) on ``device``, and
+    a debug line of the block's seconds, ``"<line> %s in %.4f s"`` (args: the
+    step's name, the seconds; ``line`` defaults to ``stage``): ``"fit set-up
+    %s in %.4f s"`` for the factor models' set-up, ``"item-item fit ..."``
+    for every step of an item-item similarity build, whatever its stage.
 
     With debug logging on, a CUDA ``device`` (or each of a list of devices,
     a mesh's) is synchronized before the clock starts and before it stops,
@@ -259,4 +270,4 @@ def timed_step(step, device, stage="fit set-up"):
         start = time.perf_counter()
         yield
         sync()
-        log.debug(stage + " %s in %.4f s", step, time.perf_counter() - start)
+        log.debug((line or stage) + " %s in %.4f s", step, time.perf_counter() - start)

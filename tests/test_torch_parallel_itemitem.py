@@ -258,7 +258,7 @@ def test_chip_smoke_meshed_knn_bar():
     weighted = csr_matrix(nn.bm25_weight(_counts(users=400, items=90, seed=5).T, 1.2, 0.75).T)
     want = nn.all_pairs_knn(weighted, 6, method="device", device="cpu").tocsr()
     wall, steps = chip_smoke.mesh_knn_check(weighted, want, "cpu", virtual_mesh(D, "cpu"), K=6)
-    assert wall > 0 and set(steps) == {"gramian", "top-k"}
+    assert wall > 0 and set(steps) == {"upload", "gramian", "top-k", "copy back"}
 
 
 def test_chip_smoke_meshed_ease_bar():

@@ -1,11 +1,12 @@
 """The port's spans and counters (``implicit_tpu_torch.tracing``) on the CPU.
 
 Spans are recorded only while a ``torch.profiler`` session records: the
-trees of an ALS fit, a BPR fit and ``recommend`` under a CPU profiler,
-their place on the profiler's clock, nothing with the profiler off, the
-bounded buffer. Counters always count: kernel launches
-(``ops.cg_kernels.LAUNCHES``), BPR's grouped chunks and scatters and the
-free-memory queries of the top-k's budget.
+trees of an ALS fit, a BPR fit, an EASE fit, an item-item KNN fit and
+``recommend`` under a CPU profiler, their place on the profiler's clock,
+nothing with the profiler off, the bounded buffer. Counters always count:
+kernel launches (``ops.cg_kernels.LAUNCHES``), BPR's grouped chunks and
+scatters, the item-item gramian's densified chunks and top-K row blocks,
+and the free-memory queries of the top-k's budget.
 """
 
 import numpy as np
@@ -13,9 +14,11 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from implicit_tpu_torch import nearest_neighbours as nn
 from implicit_tpu_torch import tracing
 from implicit_tpu_torch.als import AlternatingLeastSquares
 from implicit_tpu_torch.bpr import BayesianPersonalizedRanking
+from implicit_tpu_torch.ease import EASERecommender
 from implicit_tpu_torch.datasets.synthetic import generate_synthetic
 from implicit_tpu_torch.models import bpr
 from implicit_tpu_torch.ops import bpr_update, cg_kernels, topk
@@ -150,6 +153,78 @@ def test_bpr_fit_span_tree(epoch_mode):
     assert tracing.spans() == []
     assert tracing.counters()["bpr.chunk_steps"] - before["bpr.chunk_steps"] == (
         6 * n_chunks if grouped else 0)
+
+
+ITEM_ITEM_COUNTERS = ("gramian.dense_chunks", "topk.library_selects")
+
+
+def _item_item_fit(fit, monkeypatch):
+    """``fit()`` under the profiler with the item-item build cut small:
+    chunks of 64 users (5 of PLAYS' 300) and top-K row blocks of 48 items
+    (5 of its 200). Returns the spans and the counters' moves; checks that
+    with the profiler off the counters count the same and no span is
+    recorded."""
+    monkeypatch.setattr(nn, "_DEVICE_KNN_DENSE_BYTES", 64 * 200)
+    monkeypatch.setattr(nn, "_TOPK_BLOCK_ELEMENTS", 48 * 200)
+    before = tracing.counters()
+    with _profiled():
+        fit()
+    moved = {k: tracing.counters()[k] - before[k] for k in ITEM_ITEM_COUNTERS}
+    spans = tracing.spans()
+    tracing.clear()
+    fit()
+    assert tracing.spans() == []
+    assert {k: tracing.counters()[k] - before[k] for k in ITEM_ITEM_COUNTERS} == {
+        k: 2 * v for k, v in moved.items()}
+    return spans, moved
+
+
+def _check_item_item_tree(spans, moved, steps, attrs):
+    """One root ``fit`` with ``attrs`` and the counters' moves; its children
+    ``steps``, the set-up steps at stage "fit set-up" and the rest at
+    "model step" (CPU: no device seconds), none with children."""
+    root, = [s for s in spans if s["parent"] is None]
+    assert root["name"] == "fit" and root["attrs"] == attrs
+    assert root["counts"] == {k: v for k, v in moved.items() if v}
+    assert all(s["root"] == root["id"] for s in spans)
+    children = _under(spans, root)
+    assert [c["name"] for c in children] == steps
+    for c in children:
+        set_up = c["name"] in ("prepare", "upload", "copy back")
+        assert c["attrs"] == {"stage": "fit set-up" if set_up else "model step"}
+        assert c["device_s"] is None and not _under(spans, c)
+    starts = [c["start_ns"] for c in children]
+    assert starts == sorted(starts)
+
+
+def test_ease_fit_span_tree(monkeypatch):
+    """EASE's fit: its set-up steps, its model steps, one densified chunk
+    counted per 64 users and one ``torch.topk`` per row block of 48."""
+    spans, moved = _item_item_fit(
+        lambda: EASERecommender(K=10, regularization=50.0, device="cpu").fit(
+            PLAYS, show_progress=False), monkeypatch)
+    assert moved == {"gramian.dense_chunks": 5, "topk.library_selects": 5}
+    _check_item_item_tree(
+        spans, moved, ["prepare", "upload", "gramian", "cholesky", "inverse", "weights",
+                       "top-k", "copy back"],
+        dict(family="ease", users=300, items=200, nnz=PLAYS.nnz, K=10, regularization=50.0))
+
+
+@pytest.mark.parametrize("route", ["device", "host"])
+def test_knn_fit_span_tree(route, monkeypatch):
+    """An item-item KNN fit (cosine): one root, ``family`` "item-item", its
+    ``prepare``; the device route's steps and counts, the host route's
+    none."""
+    monkeypatch.setattr(nn, "_device_knn_wins", lambda *args, **kwargs: route == "device")
+    spans, moved = _item_item_fit(
+        lambda: nn.CosineRecommender(K=10, device="cpu").fit(PLAYS, show_progress=False),
+        monkeypatch)
+    device = route == "device"
+    assert moved == {"gramian.dense_chunks": 5 * device, "topk.library_selects": 5 * device}
+    _check_item_item_tree(
+        spans, moved,
+        ["prepare"] + ["upload", "gramian", "top-k", "copy back"] * device,
+        dict(family="item-item", users=300, items=200, nnz=PLAYS.nnz, K=10))
 
 
 def test_nothing_is_recorded_with_the_profiler_off():
